@@ -2,35 +2,49 @@
 """Bring-up check of the PyTorch/CUDA port (neuralradiancecaching_tpu_torch)
 on one NVIDIA GPU.
 
-Drives the port's two paths of config 4 with the collision sampler and the
-fused query MLP, at full model width (6x64 MLP, L=16 T=16384 F=2 hash
-table, random weights from a seed) and full scene size (125x85x153 density
-grid, fields at (32, 24, 40) x (16, 32) buckets):
+Drives the port's three paths at full model width (6x64 MLP, L=16 T=16384
+F=2 hash table, random weights from a seed) and full scene size (125x85x153
+density grid, fields at (32, 24, 40) voxels):
 
-- the serving path, ``render_only_step``: the cached 512x512 render;
-- the online frame, ``frame_step``: the train batch (100x100 train grid x 8
-  oversampled jitters = an 80,000-lane vertex walk, 80,000 target walks of
-  64 slots split and cascaded), the train step (oct encode, autograd,
-  guarded Adam on the MLP and the table), then the 512x512 render.
+- config 4 with the collision sampler and the fused query MLP, fields at
+  (16, 32) buckets: the serving path ``render_only_step`` (the cached
+  512x512 render), and the online frame ``frame_step`` (the train batch:
+  100x100 train grid x 8 oversampled jitters = an 80,000-lane vertex walk,
+  80,000 target walks of 64 slots split and cascaded; the train step: oct
+  encode, autograd, guarded Adam on the MLP and the table; then the
+  512x512 render);
+- config 5's progressive 1920x1080 frame, the single-device banded branch
+  of the JAX package's ``cli.py`` with ``bench.py``'s production settings
+  and hoists: bf16 fields at (32, 64) direction buckets, the caps from the
+  bench's probes, the pose-static env colour and live-ray pack, then per
+  frame ``train_only_step`` -> ``nrc.bake`` (bf16 rows) ->
+  ``tiled.render_banded`` (the packed walk in 30-row bands, the deferred
+  shade and the bf16 cache query through K1's bf16 mode).
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
-(csrc/fused_mlp.cu, the query MLP, on both paths) at the shapes the paths
-give it, and K2 (csrc/matmul.cu, the generic fp32 matrix product, on no
-path of the frame) at the JAX test's shapes and at 4096^3. Run from the
-repository root:
+(csrc/fused_mlp.cu, the query MLP: its f32 mode on config 4's paths, its
+bf16 mode on config 5's) at the shapes the paths give it, and K2
+(csrc/matmul.cu, the generic fp32 matrix product, on no path of the frame)
+at the JAX test's shapes and at 4096^3. Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases: device; both kernels built together; K1 and K2 vs plain with
 timings; scene bake; cache state; frames through ``render_only_step`` and
-then through ``frame_step`` (launch counts reset just before each path,
-read just after); 32 ``train_only_step``s whose mse must fall; both
-frames' profiles; K1 on the frame's real feature rows; the port on the
-card vs the port on the CPU at a small size with the same random draws
+then through ``frame_step``; 32 ``train_only_step``s whose mse must fall;
+both frames' profiles; K1 on the frame's real feature rows; the port on
+the card vs the port on the CPU at a small size with the same random draws
 (the CPU path is the one the tests hold to the JAX package), for the
-render and for one online frame. Any failure raises and exits non-zero.
-Without a CUDA device, or outside a checkout of the repository, it exits
-2 and prints no result. The line before the last is the kernels' JSON
+render and for one online frame; then config 5: its scene bake (and each
+field's bake alone, for its peak memory), 3 warm-up train steps, the
+probes and caps, K1's bf16 mode vs plain, 4+1 progressive frames, their
+stages and profile, K1 bf16 on the frame's real rows, and the card vs the
+CPU port on the packed frame at a small size with f32 and with bf16
+fields. Launch counts are reset just before each
+path's timed frames and read just after. Any failure raises and exits
+non-zero. Without a CUDA device, or outside a checkout of the
+repository, it exits 2 and prints no result. The line before the last is
+the card's name and power limit, the one before it the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -73,6 +87,19 @@ SMALL_FRAC_OK, SMALL_REL_MEAN = 0.995, 1e-4
 SMALL_MSE_REL, SMALL_PARAM_TOL, SMALL_HASH_FRAC = 1e-3, 1e-6, 0.999
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# config 5's progressive frame (bench.py:69-84: 1920x1080, spp 1, 30-row
+# bands; bench.py:153 three warm-up train steps), 4 timed frames after one
+# warm-up frame, and K1's bf16 mode at the tests' sizes (the frame's
+# packed-lane count is added once the pack is built)
+P_WIDTH, P_HEIGHT, BAND_ROWS = 1920, 1080, 30
+P_FRAMES, P_WARMUP_STEPS = 4, 3
+K1_BF16_SIZES = (1, 5, 511, 513)
+# the card vs the CPU port on the small packed frame: f32 fields at the
+# render bound above; bf16 fields and the bf16 query at the bound
+# tests/test_torch_tiled.py holds the port to against JAX (>= 99% of
+# pixels within 1e-3 + 1e-3 |ref|, all within 1e-2 + 1e-2 |ref|, mean
+# 1e-4 relative)
+SMALL_BF16_FRAC_OK = 0.99
 
 
 def log(msg: str) -> None:
@@ -317,7 +344,415 @@ def state_to(state, device):
                           for f in dataclasses.fields(state)})
 
 
+def round64(x: float) -> float:
+    """Round up to the bench's 1/64 cap granularity (bench.py:202)."""
+    return float(np.ceil(x / 0.015625) * 0.015625)
+
+
+def progressive_config(width: int, height: int, small: bool = False,
+                       field_dtype: str = "bfloat16"):
+    """Config 5 with the JAX bench's production settings (bench.py:86-293):
+    1 spp, live-tau threshold 0.005, the slot-0-dense shade, the bf16 query
+    (f32 when ``field_dtype`` is f32), plus the fused query MLP so K1 lies
+    on the path; the caps come from :func:`probe_caps`. ``small`` cuts the
+    scene and the train batch to the tests' size."""
+    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    r = dataclasses.replace
+    cfg = cfg_mod.progressive_1080p_config()
+    bf16 = field_dtype == "bfloat16"
+    cfg = r(cfg, camera=r(cfg.camera, aspect=width / height),
+            render=r(cfg.render, width=width, height=height, spp=1,
+                     use_nn=True, live_tau_threshold=0.005,
+                     shade_slot0_dense=True),
+            mlp=r(cfg.mlp, fused_inference=True,
+                  inference_dtype="bfloat16" if bf16 else "float32"),
+            volume=r(cfg.volume, field_dtype=field_dtype))
+    if small:
+        cfg = r(cfg, path=r(cfg.path, collision_field_steps=8),
+                volume=r(cfg.volume, grid_shape=(16, 12, 20),
+                         field_shape=(6, 5, 8), field_dir_buckets=(8, 16)),
+                env_map=r(cfg.env_map, scatter_quad_dirs=(8, 16)),
+                train=r(cfg.train, train_width=16, train_height=16,
+                        target_bounces=16))
+    return cfg
+
+
+def probe_caps(scene, cfg, gen):
+    """The JAX bench's cap probes (bench.py:161-268) on the port: the
+    query fraction of an NN walk over every stride-th ray, the exact live
+    fraction of the full frame, the mean event count per ray and its
+    slot-0 part from a collect-mode walk, each rounded up to 1/64 with the
+    bench's margins; with the pack on, the query is uncapped. Returns
+    (cfg with the caps, the probes)."""
+    from neuralradiancecaching_tpu_torch.render import pathtrace, tiled
+    from neuralradiancecaching_tpu_torch.scene import camera
+    w, h = cfg.render.width, cfg.render.height
+    stride = max(1, (w * h) // (w * 64))
+    ro, rd = camera.pixel_rays(scene.camera, w, h)
+    ro, rd = ro[::stride], rd[::stride]
+    res = pathtrace.trace_path(scene, cfg, ro, rd, gen, use_nn=True)
+    qfrac = float((res.query_weight > 0).float().mean())
+    live_frac = tiled.live_fraction(scene, cfg)
+    _, ev = pathtrace.trace_path_collision(scene, cfg, ro, rd, gen,
+                                           use_nn=True, collect_events=True)
+    valid = ev[..., 6] > 0
+    ev_mean = float(valid.sum(dim=1).float().mean())
+    ev0_mean = float(valid[:, 0].float().mean())
+    k_slots = float(ev.shape[1])
+    cap_mean = ev_mean - ev0_mean if cfg.render.shade_slot0_dense else ev_mean
+    shade_cap = min(k_slots, round64(cap_mean * 1.05 + 0.01))
+    pack = min(1.0, round64(live_frac * 1.05 + 0.005))
+    query_cap = 1.0 if pack > 0.0 else min(1.0, round64(qfrac * 1.05 + 0.005))
+    r = dataclasses.replace
+    cfg = r(cfg, render=r(cfg.render, query_cap_fraction=query_cap,
+                          shade_cap_fraction=shade_cap,
+                          live_pack_fraction=pack))
+    return cfg, dict(stride=stride, probe_rays=ro.shape[0], qfrac=qfrac,
+                     live_frac=live_frac, ev_mean=ev_mean, ev0_mean=ev0_mean,
+                     k_slots=k_slots, query_cap_fraction=query_cap,
+                     shade_cap_fraction=shade_cap, live_pack_fraction=pack)
+
+
+def time_k1(params, x, mlp_cfg):
+    """K1 and its plain version on x, in turns on one card (plain, kernel,
+    kernel, plain): (kernel ms, plain ms, each pair)."""
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp
+    k1 = lambda: fused_mlp.apply_kernel(params, x, mlp_cfg)  # noqa: E731
+    plain = lambda: fused_mlp.apply_plain(params, x, mlp_cfg)  # noqa: E731
+    for fn in (plain, k1):  # warm-up
+        fn()
+    sync()
+    t_plain_a, t_k1_a = time_ms(plain), time_ms(k1)
+    t_k1_b, t_plain_b = time_ms(k1), time_ms(plain)
+    return (statistics.median([t_k1_a, t_k1_b]),
+            statistics.median([t_plain_a, t_plain_b]),
+            (t_k1_a, t_k1_b), (t_plain_a, t_plain_b))
+
+
+def k1_work(mlp_cfg, rows: int, row_bytes: int) -> tuple[float, float]:
+    """(FLOP, bytes) of K1 over ``rows`` rows: two per multiply-add of every
+    layer; each input row and output row moved once, the weights once."""
+    dims = [mlp_cfg.in_features] + [mlp_cfg.hidden] * (mlp_cfg.n_layers - 1)
+    macs = sum(a * b for a, b in zip(dims, dims[1:] + [mlp_cfg.out_features]))
+    weights = 4 * (macs + sum(dims[1:]) + mlp_cfg.out_features)
+    return (2.0 * rows * macs,
+            rows * (row_bytes + 4 * mlp_cfg.out_features) + weights)
+
+
+def ball_cloud(shape, seed: int = 0) -> np.ndarray:
+    """A seeded random ball of density (the tiled tests' cloud): rays miss
+    the box, graze it below the live threshold, or cross it."""
+    rng = np.random.default_rng(seed)
+    axes = [(np.arange(n) + 0.5) / n - 0.5 for n in shape]
+    r = np.sqrt(sum(a ** 2 for a in np.meshgrid(*axes, indexing="ij")))
+    return (rng.random(shape, dtype=np.float32) * 0.6 * (r < 0.4)).astype(
+        np.float32)
+
+
+def count_calls(module, name: str):
+    """Wrap ``module.name`` with a call counter; returns (counter list,
+    restore function)."""
+    orig, calls = getattr(module, name), [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+    setattr(module, name, counted)
+    return calls, lambda: setattr(module, name, orig)
+
+
+def bake_peaks(cfg, dens, env, dev) -> None:
+    """Peak device memory of each of ``make_scene``'s field bakes called
+    alone from the same corner table (the arguments ``make_scene`` gives
+    them), beside the size of its f32 output."""
+    from neuralradiancecaching_tpu_torch.ops import collision, lightfield
+    from neuralradiancecaching_tpu_torch.ops import volume
+    dens = torch.as_tensor(dens, device=dev, dtype=torch.float32)
+    env = torch.as_tensor(env, device=dev, dtype=torch.float32)
+    corner = volume.build_corner_table(dens)
+    bakes = {
+        "env_t_field": lambda: lightfield.build_transmittance_field(
+            corner, cfg.volume, steps=cfg.env_map.transmittance_steps),
+        "env_s_field": lambda: lightfield.build_scatter_field(
+            corner, env, cfg.volume, hg_g=cfg.volume.hg_g,
+            steps=(cfg.env_map.scatter_bake_steps
+                   or cfg.env_map.transmittance_steps),
+            quad_dirs=cfg.env_map.scatter_quad_dirs),
+        "coll_field": lambda: collision.build_collision_field(
+            corner, cfg.volume, steps=cfg.path.collision_field_steps)}
+    for name, fn in bakes.items():
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        sync()
+        log(f"  {name} bake alone: f32 output "
+            f"{out.numel() * 4 / 2**30:.3f} GiB, peak above its inputs "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+        del out
+
+
+def progressive_small_vs_cpu(dev, field_dtype: str) -> None:
+    """The packed frame on the card vs the CPU port at the tests' size
+    (32x30, 6-row bands): one ``train_only_step`` -> ``bake`` ->
+    ``render_banded`` from the same O(1) state, scene and draws."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import frame, targets, tiled
+    from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
+    w, h, band = 32, 30, 6
+    r = dataclasses.replace
+    cfg = progressive_config(w, h, small=True, field_dtype=field_dtype)
+    cfg = r(cfg, render=r(cfg.render, live_pack_fraction=0.75,
+                          query_cap_fraction=1.0, shade_cap_fraction=1.0))
+    dens, env = ball_cloud(cfg.volume.grid_shape), assets.synthesize_sky(32, 64)
+    pose = camera.orbit_position(1, 8, radius=150.0)
+    state = nrc.init_state(torch.Generator().manual_seed(2), cfg,
+                           device="cpu")
+    state = dataclasses.replace(state, mlp_params=he_params(
+        cfg, torch.Generator().manual_seed(3), "cpu"))
+    t_u = targets.draw_train_uniforms(cfg, torch.Generator().manual_seed(6),
+                                      "cpu")
+    u, out = None, []
+    for d in ("cpu", dev):
+        sc = scn.make_scene(cfg, dens, env, device=d)
+        sc = dataclasses.replace(sc, camera=camera.make_camera(cfg.camera, d,
+                                                               *pose))
+        st, mse = frame.train_only_step(state_to(state, d), sc, None, cfg,
+                                        to_device(t_u, d))
+        pack = tiled.frame_live_pack(sc, cfg, band)
+        if u is None:
+            u = torch.rand(tiled.band_uniform_shape(cfg, pack.ro_p.shape[0],
+                                                    band * w),
+                           generator=torch.Generator().manual_seed(4))
+        img = tiled.render_banded(
+            st, sc, None, cfg, band, env_rgb=tiled.frame_env_color(sc, cfg),
+            baked=nrc.bake(st, cfg), pack=pack, uniforms=u.to(d))
+        out.append((img.cpu().numpy().reshape(-1, 3), float(mse),
+                    int(pack.val.sum())))
+    sync()
+    (ref, mse_c, live_c), (got, mse_g, live_g) = out
+    check(live_g == live_c, f"live rays {live_g} vs {live_c}")
+    check(bool(np.isfinite(got).all()), "small packed frame not finite")
+    err = np.abs(got - ref)
+    rel_mean = abs(got.mean() - ref.mean()) / abs(ref.mean())
+    mse_rel = abs(mse_g - mse_c) / abs(mse_c)
+    if field_dtype == "float32":
+        frac = np.all(err <= 1e-4 + 1e-3 * np.abs(ref), axis=-1).mean()
+        ok = frac >= SMALL_FRAC_OK
+        bound = "1e-4 + 1e-3|ref|"
+    else:
+        frac = np.all(err <= 1e-3 + 1e-3 * np.abs(ref), axis=-1).mean()
+        ok = (frac >= SMALL_BF16_FRAC_OK
+              and bool(np.all(err <= 1e-2 + 1e-2 * np.abs(ref))))
+        bound = "1e-3 + 1e-3|ref| (all within 1e-2 + 1e-2|ref|)"
+    log(f"card vs CPU port, packed progressive frame {w}x{h} with "
+        f"{field_dtype} fields: {live_g} live rays on both, {frac:.4f} of "
+        f"pixels within {bound}, max abs diff {float(err.max()):.3e}, mean "
+        f"rel diff {rel_mean:.3e}; mse {mse_g:.6f} vs {mse_c:.6f} (rel "
+        f"{mse_rel:.3e})")
+    check(ok and rel_mean <= SMALL_REL_MEAN,
+          f"the card's packed frame ({field_dtype}) disagrees with the CPU "
+          f"port")
+    check(mse_rel <= SMALL_MSE_REL, "the card's train mse disagrees")
+
+
+def progressive_frame(dev, dens, env, params_he) -> dict:
+    """Config 5's progressive 1920x1080 frame on the card (phases 8-8h):
+    its scene bake and each field's bake peak, 3 warm-up train steps, the
+    probes and caps, the pose-static hoists, K1's bf16 mode vs its plain
+    version, 4+1 frames of
+    ``train_only_step`` -> ``bake`` -> ``render_banded`` with the launch
+    counts reset just before the timed frames and read just after, the
+    render half's stages and profile, and the card vs the CPU port on the
+    small packed frame. Returns K1's bf16 entry of the kernels' record."""
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    from neuralradiancecaching_tpu_torch.ops import volume
+    from neuralradiancecaching_tpu_torch.render import frame, tiled
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+
+    # -- 8. config 5's scene: bf16 fields at (32, 64) buckets ---------------
+    cfg = progressive_config(P_WIDTH, P_HEIGHT)
+    n_pix = P_WIDTH * P_HEIGHT
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict[str, float] = {}
+    t0 = time.perf_counter()
+    scene = scn.make_scene(cfg, dens, env, timings=timings, device=dev)
+    sync()
+    log(f"config 5 scene bake {time.perf_counter() - t0:.3f} s (dir buckets "
+        f"{cfg.volume.field_dir_buckets}, out buckets "
+        f"{cfg.volume.field_out_buckets}): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in timings.items()))
+    for field in ("env_t_field", "env_s_field", "coll_field"):
+        t = getattr(scene, field)
+        check(t.dtype == torch.bfloat16, f"{field} is {t.dtype}")
+        check(bool(torch.isfinite(t).all()), f"{field} not finite")
+        log(f"  {field} {tuple(t.shape)} {t.dtype} mean "
+            f"{float(t.float().mean()):.5f}")
+    log(f"peak memory during the config 5 bake: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    bake_peaks(cfg, dens, env, dev)
+
+    # -- 8b. cache state and the bench's warm-up train steps ----------------
+    state = nrc.init_state(torch.Generator(device=dev).manual_seed(cfg.seed),
+                           cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(100)
+    warm = []
+    for _ in range(P_WARMUP_STEPS):
+        state, mse = frame.train_only_step(state, scene, gen, cfg)
+        warm.append(float(mse))
+    log(f"{P_WARMUP_STEPS} warm-up train_only_steps: mse "
+        f"{[round(m, 5) for m in warm]}")
+
+    # -- 8c. the bench's probes and caps ------------------------------------
+    t0 = time.perf_counter()
+    cfg, probes = probe_caps(scene, cfg,
+                             torch.Generator(device=dev).manual_seed(99))
+    log(f"probes and caps ({time.perf_counter() - t0:.3f} s): "
+        f"{json.dumps(probes)}")
+    check(0.0 < probes["live_pack_fraction"] <= 1.0, "no live rays")
+
+    # -- 8d. pose-static hoists ---------------------------------------------
+    env_rgb = stage("frame_env_color (once per pose)",
+                    lambda: tiled.frame_env_color(scene, cfg))
+    pack = stage("frame_live_pack (once per pose, with the packed entry "
+                 "tau)", lambda: tiled.frame_live_pack(scene, cfg, BAND_ROWS))
+    n_packed = pack.ro_p.shape[0] * pack.ro_p.shape[1]
+    n_live = int(pack.val.sum())
+    log(f"live-ray pack: {n_live} live rays of {n_pix}, packed to "
+        f"{n_packed} lanes ({pack.ro_p.shape[0]} bands of {BAND_ROWS} rows)")
+    check(n_live == round(probes["live_frac"] * n_pix),
+          "the pack dropped live rays")
+
+    # -- 8e. K1's bf16 mode vs its plain version ----------------------------
+    mlp = cfg.mlp
+    params_bf = {k: v.to(torch.bfloat16) for k, v in params_he.items()}
+    kgen = torch.Generator(device=dev).manual_seed(8)
+    err = 0.0
+    for n in K1_BF16_SIZES + (n_packed,):
+        x = torch.randn((n, mlp.in_features), generator=kgen,
+                        device=dev).to(torch.bfloat16)
+        abs_e, rel_e = compare_k1(params_bf, x, mlp)
+        err = max(err, abs_e)
+        log(f"K1 bf16 vs plain n={n}: max abs {abs_e:.3e} max rel "
+            f"{rel_e:.3e}")
+    k1_ms, plain_ms, k1_pair, plain_pair = time_k1(params_bf, x, mlp)
+    flop, nbytes = k1_work(mlp, n_packed, 2 * mlp.in_features)
+    bound, by = bound_ms(flop, nbytes)
+    log(f"K1 bf16 at {n_packed} rows: {k1_ms:.4f} ms {k1_pair}; plain "
+        f"{plain_ms:.4f} ms {plain_pair}; K1 {flop / k1_ms / 1e9:.2f} "
+        f"TFLOP/s fp32; bound {bound:.4f} ms by {by} ({flop / 1e9:.2f} "
+        f"GFLOP, {nbytes / 1e6:.2f} MB)")
+    del x
+
+    # -- 8f. 4+1 progressive frames -----------------------------------------
+    def progressive(st):
+        sync()
+        t0 = time.perf_counter()
+        st, mse = frame.train_only_step(st, scene, gen, cfg)
+        sync()
+        t1 = time.perf_counter()
+        baked = nrc.bake(st, cfg)
+        img = tiled.render_banded(st, scene, gen, cfg, BAND_ROWS,
+                                  env_rgb=env_rgb, baked=baked, pack=pack)
+        sync()
+        t2 = time.perf_counter()
+        return st, float(mse), img, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    state, *_ = progressive(state)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BF16 = matmul.LAUNCHES = 0
+    whole, train, render, mses, means = [], [], [], [], []
+    for i in range(P_FRAMES):
+        state, mse, img, t_ms, r_ms = progressive(state)
+        whole.append(t_ms + r_ms)
+        train.append(t_ms)
+        render.append(r_ms)
+        mses.append(mse)
+        check(tuple(img.shape) == (P_HEIGHT, P_WIDTH, 3), f"image {img.shape}")
+        check(bool(torch.isfinite(img).all()), f"progressive frame {i} not "
+              f"finite")
+        means.append(float(img.mean()))
+    launches = fused_mlp.LAUNCHES_BF16
+    launches_f32, k2_launches = fused_mlp.LAUNCHES, matmul.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    check(launches >= P_FRAMES, f"K1 bf16 launched {launches} times in "
+          f"{P_FRAMES} progressive frames")
+    check(all(1e-3 < m < 1e3 for m in means), f"frame means {means}")
+    check(all(np.isfinite(mses)), f"train mse {mses}")
+
+    def med(xs, lo, hi):
+        return statistics.median(xs[lo:hi])
+    h = P_FRAMES // 2
+    log(f"progressive frame {P_WIDTH}x{P_HEIGHT} (train_only_step -> bake "
+        f"-> render_banded, {BAND_ROWS}-row bands): ms "
+        f"{[round(t, 3) for t in whole]}, median {med(whole, 0, None):.3f} "
+        f"(first half {med(whole, 0, h):.3f}, second half "
+        f"{med(whole, h, None):.3f}), {n_pix / med(whole, 0, None) / 1e3:.3f}"
+        f" Mrays/s; train half (train_only_step) "
+        f"{[round(t, 3) for t in train]}, median {med(train, 0, None):.3f} "
+        f"ms; render half (bake + render_banded) "
+        f"{[round(t, 3) for t in render]}, median {med(render, 0, None):.3f}"
+        f" ms, {n_pix / med(render, 0, None) / 1e3:.3f} Mrays/s; mse "
+        f"{[round(m, 5) for m in mses]}; image means "
+        f"{[round(m, 5) for m in means]}; K1 bf16 launches {launches}, K1 "
+        f"f32 launches {launches_f32}, K2 launches {k2_launches}; peak "
+        f"memory {peak / 2**30:.3f} GiB")
+
+    # -- 8g. the render half's stages, profile, K1 bf16 on the real rows ----
+    baked = stage("nrc.bake (bf16 oct rows)", lambda: nrc.bake(state, cfg))
+    stage("entry-tau quadrature over the packed lanes (hoisted into "
+          "frame_live_pack: once per pose)", lambda: tiled._entry_tau(
+              scene, cfg, pack.ro_p.reshape(-1, 3), pack.rd_p.reshape(-1, 3)))
+    inv, rgb_p, trans_p, qp, qd, qw, ev = stage(
+        f"packed collect-mode walk ({n_packed} lanes)",
+        lambda: tiled._packed_bands_program(scene, gen, cfg, BAND_ROWS,
+                                            pack))
+    feats = stage("encode_baked (bf16) over the packed lanes",
+                  lambda: nrc.encode_baked(state, baked, qp, qd, cfg))
+    stage("query_mlp (K1 bf16)", lambda: nrc.query_mlp(state, feats, cfg))
+    stage("_finish_packed (deferred shade, bf16 query, un-pack, env)",
+          lambda: tiled._finish_packed(state, baked, scene, inv, rgb_p,
+                                       trans_p, qp, qd, qw, ev, cfg, env_rgb))
+    calls, restore = count_calls(volume, "transmittance")
+    stage("whole render_banded", lambda: tiled.render_banded(
+        state, scene, gen, cfg, BAND_ROWS, env_rgb=env_rgb, baked=baked,
+        pack=pack))
+    restore()
+    log(f"  entry-tau quadratures (volume.transmittance calls) in one "
+        f"render_banded: {calls[0]}")
+    check(calls[0] == 0, "render_banded ran the entry-tau quadrature")
+    profile_call("render_banded", lambda: tiled.render_banded(
+        state, scene, gen, cfg, BAND_ROWS, env_rgb=env_rgb, baked=baked,
+        pack=pack))
+    log(f"real bf16 feature rows {tuple(feats.shape)}, "
+        f"{float((qw > 0).float().mean()):.4f} of the packed lanes querying")
+    for label, params in (("state weights", {
+            k: v.to(torch.bfloat16) for k, v in state.mlp_params.items()}),
+            ("O(1) weights", params_bf)):
+        abs_e, rel_e = compare_k1(params, feats, mlp)
+        err = max(err, abs_e)
+        log(f"K1 bf16 vs plain on real rows ({label}): max abs {abs_e:.3e} "
+            f"max rel {rel_e:.3e}")
+    del scene, state, pack, env_rgb, baked, feats, ev, qp, qd, qw
+    torch.cuda.empty_cache()
+
+    # -- 8h. the card vs the CPU port on the small packed frame -------------
+    for field_dtype in ("float32", "bfloat16"):
+        progressive_small_vs_cpu(dev, field_dtype)
+
+    return {"name": "fused_mlp_bf16", "route": "cuda",
+            "source": "neuralradiancecaching_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "neuralradiancecaching_tpu/ops/pallas_mlp.py:37",
+            "launches": launches, "max_abs_err": err, "ms": k1_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -369,26 +804,12 @@ def main() -> int:
         log(f"K1 vs plain n={n}: max abs {abs_e:.3e} max rel {rel_e:.3e}")
     x_big = torch.randn((WIDTH * HEIGHT, cfg.mlp.in_features),
                         generator=gen, device=dev)
-    k1 = lambda: fused_mlp.apply_kernel(params_he, x_big, cfg.mlp)  # noqa
-    plain = lambda: fused_mlp.apply_plain(params_he, x_big, cfg.mlp)  # noqa
-    for fn in (plain, k1):  # warm-up
-        fn()
-    sync()
-    # in turns on one card: plain, kernel, kernel, plain
-    t_plain_a, t_k1_a = time_ms(plain), time_ms(k1)
-    t_k1_b, t_plain_b = time_ms(k1), time_ms(plain)
-    k1_ms = statistics.median([t_k1_a, t_k1_b])
-    plain_ms = statistics.median([t_plain_a, t_plain_b])
-    dims = [cfg.mlp.in_features] + [cfg.mlp.hidden] * (cfg.mlp.n_layers - 1)
-    k1_flop = 2 * WIDTH * HEIGHT * sum(
-        a * b for a, b in zip(dims, dims[1:] + [cfg.mlp.out_features]))
-    k1_bytes = 4 * (x_big.numel() + WIDTH * HEIGHT * cfg.mlp.out_features
-                    + sum(v.numel() for v in params_he.values()))
+    k1_ms, plain_ms, k1_pair, plain_pair = time_k1(params_he, x_big, cfg.mlp)
+    k1_flop, k1_bytes = k1_work(cfg.mlp, WIDTH * HEIGHT, 4 * 64)
     k1_bound, k1_by = bound_ms(k1_flop, k1_bytes)
-    log(f"K1 at {WIDTH * HEIGHT} rows: {k1_ms:.4f} ms ({t_k1_a:.4f}, "
-        f"{t_k1_b:.4f}); plain {plain_ms:.4f} ms ({t_plain_a:.4f}, "
-        f"{t_plain_b:.4f}); K1 {k1_flop / k1_ms / 1e9:.2f} TFLOP/s fp32; "
-        f"bound {k1_bound:.4f} ms by {k1_by}")
+    log(f"K1 at {WIDTH * HEIGHT} rows: {k1_ms:.4f} ms {k1_pair}; plain "
+        f"{plain_ms:.4f} ms {plain_pair}; K1 {k1_flop / k1_ms / 1e9:.2f} "
+        f"TFLOP/s fp32; bound {k1_bound:.4f} ms by {k1_by}")
 
     # -- 3b. K2 vs plain at the JAX test's shapes and at 4096^3 -------------
     k2_err = 0.0
@@ -622,6 +1043,12 @@ def main() -> int:
           and float(h_diff.max()) <= h_bound * 1.0001,
           "the card's hash-table step disagrees")
 
+    # -- 8. config 5's progressive 1080p frame ------------------------------
+    del scene, train_scene, state, res, feats, x_big, img, out
+    torch.cuda.empty_cache()
+    k1_bf16 = progressive_frame(dev, dens, env, params_he)
+
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         {"name": "fused_mlp", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/fused_mlp.cu",
@@ -629,6 +1056,7 @@ def main() -> int:
          "launches": launches_online, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
+        k1_bf16,
         {"name": "matmul", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/matmul.cu",
          "replaces": "neuralradiancecaching_tpu/ops/pallas_matmul.py:30",

@@ -108,43 +108,52 @@ def encode(hash_table: torch.Tensor, pos: torch.Tensor,
 
 def _inference_mlp(params, x: torch.Tensor, cfg: NRCConfig) -> torch.Tensor:
     """Query-path MLP forward: the fused kernel (K1) when enabled and the
-    input is a flat batch; the plain torch MLP otherwise."""
+    input is a flat batch; the kernel's plain torch version otherwise (f32
+    activations for bf16 rows too, as JAX's f32-accumulating dot)."""
     if cfg.mlp.fused_inference and x.ndim == 2:
         return fused_mlp.apply(params, x, cfg.mlp)
-    return mlp_ops.apply(params, x, cfg.mlp)
+    return fused_mlp.apply_plain(params, x, cfg.mlp)
 
 
 def bake(state: NRCState, cfg: NRCConfig) -> torch.Tensor:
     """The MRHE inference representation: oct-packed corner rows (one row
-    gather per level per query). Call after each optimizer step."""
+    gather per level per query), stored bf16 when the scene fields are.
+    Call after each optimizer step."""
     if cfg.mrhe.inference_bake != "oct":
         raise NotImplementedError(
             f"inference_bake={cfg.mrhe.inference_bake!r} is not ported yet")
-    if cfg.volume.field_dtype != "float32":
-        raise NotImplementedError("bf16 baked rows are not ported yet")
-    return mrhe_ops.bake_oct(state.hash_table, cfg.mrhe)
+    baked = mrhe_ops.bake_oct(state.hash_table, cfg.mrhe)
+    if cfg.volume.field_dtype == "bfloat16":
+        baked = baked.to(torch.bfloat16)
+    return baked
 
 
 def encode_baked(state: NRCState, baked: torch.Tensor, pos: torch.Tensor,
                  direction: torch.Tensor, cfg: NRCConfig) -> torch.Tensor:
     """The gather half of query_baked: [L*F MRHE features from the baked
-    rows | one-blob features] rows, (N, 3), (N, 3) -> (N, 64)."""
-    if cfg.mlp.inference_dtype != "float32":
-        raise NotImplementedError("bf16 query is not ported yet")
+    rows | one-blob features] rows, (N, 3), (N, 3) -> (N, 64); bf16 rows
+    when MLPConfig.inference_dtype is bf16 (index math and lerp fractions
+    stay f32)."""
+    bf16 = cfg.mlp.inference_dtype == "bfloat16"
     pos_norm = mrhe_ops.normalize_pos(pos, cfg.volume.box_size,
                                       cfg.volume.box_center)
-    mrhe_feats = mrhe_ops.encode_with_oct(baked, pos_norm, cfg.mrhe,
-                                          cfg.quirks, pos_raw=pos)
+    mrhe_feats = mrhe_ops.encode_with_oct(
+        baked, pos_norm, cfg.mrhe, cfg.quirks, pos_raw=pos,
+        compute_dtype=torch.bfloat16 if bf16 else None)
     blob_feats = oneblob_ops.encode_dir(direction, cfg.oneblob, cfg.quirks)
+    if bf16:
+        blob_feats = blob_feats.to(torch.bfloat16)
     return torch.cat([mrhe_feats, blob_feats], dim=-1)
 
 
 def query_mlp(state: NRCState, x: torch.Tensor, cfg: NRCConfig
               ) -> torch.Tensor:
-    """The matmul half of query_baked: encode_baked rows -> (N, 3)."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError("bf16 query is not ported yet")
-    return _inference_mlp(state.mlp_params, x, cfg)
+    """The matmul half of query_baked: encode_baked rows -> (N, 3) f32.
+    bf16 rows run with the parameters cast to bf16 (K1's bf16 mode)."""
+    params = state.mlp_params
+    if x.dtype == torch.bfloat16:
+        params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    return _inference_mlp(params, x, cfg)
 
 
 def query_baked(state: NRCState, baked: torch.Tensor, pos: torch.Tensor,

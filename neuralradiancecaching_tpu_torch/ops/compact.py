@@ -3,7 +3,9 @@
 Counterpart of ``neuralradiancecaching_tpu/ops/compact.py``.
 ``compact_select`` packs the indices of marked lanes to the front in lane
 order (cumsum + one scatter into a cap+1 buffer whose last row is a dropped
-dummy); ``scatter_back`` / ``scatter_update`` put packed rows back.
+dummy); ``scatter_back`` / ``scatter_update`` put packed rows back, and
+``inverse_select`` / ``gather_back`` do it with one gather through a
+precomputed inverse map.
 ``compact_prefix`` / ``prefix_segment_sum`` pack the collision walk's
 events, whose valid slots form a prefix of each ray's slots (a done lane
 never revives): one cumsum over rows, one mark scatter and a running
@@ -60,6 +62,29 @@ def scatter_update(x: torch.Tensor, sel: torch.Tensor,
     padded = torch.cat([x, x[-1:]], dim=0)
     padded[torch.where(sel_valid, sel, n)] = values
     return padded[:n]
+
+
+def inverse_select(n: int, sel: torch.Tensor, sel_valid: torch.Tensor
+                   ) -> torch.Tensor:
+    """The inverse map of a compact_select: inv[lane] = the packed slot
+    holding that lane, or ``cap`` (sentinel) for unselected lanes. With a
+    ``sel`` that stays fixed over many frames (the pose-static live-ray
+    pack) the per-frame un-pack becomes one :func:`gather_back`."""
+    cap = sel.shape[0]
+    inv = torch.full((n + 1,), cap, dtype=torch.int64, device=sel.device)
+    inv[torch.where(sel_valid, sel, n)] = torch.arange(cap, device=sel.device)
+    return inv[:n]
+
+
+def gather_back(inv: torch.Tensor, values: torch.Tensor, fill
+                ) -> torch.Tensor:
+    """scatter_back through an :func:`inverse_select` map: lane i gets
+    ``values[inv[i]]``, sentinel lanes get ``fill`` (a scalar or one row).
+    Equal to scatter_back for the (sel, sel_valid) that built ``inv``."""
+    fill_row = torch.as_tensor(fill, dtype=values.dtype,
+                               device=values.device)
+    fill_row = fill_row.expand((1,) + tuple(values.shape[1:]))
+    return torch.cat([values, fill_row], dim=0)[inv]
 
 
 def compact_prefix(counts: torch.Tensor, cap: int

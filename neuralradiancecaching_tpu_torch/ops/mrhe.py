@@ -102,9 +102,11 @@ def bake_oct(table: torch.Tensor, cfg: MRHEConfig) -> torch.Tensor:
 
 
 def _oct_geom(pos_norm: torch.Tensor, cfg: MRHEConfig, quirks: QuirkFlags,
-              pos_raw: torch.Tensor | None):
+              pos_raw: torch.Tensor | None, compute_dtype=None):
     """(flat base-row index (..., L) int64, trilinear corner weights
-    (..., L, 2^D)) of normalized positions (..., D)."""
+    (..., L, 2^D)) of normalized positions (..., D). The index math and the
+    fractions run in pos_norm's dtype; the fractions are then cast to
+    ``compute_dtype`` (when given) and the weights computed in it."""
     res = torch.as_tensor(resolutions(cfg), dtype=pos_norm.dtype,
                           device=pos_norm.device)
     x = pos_norm[..., None, :] * res[:, None]  # (..., L, D)
@@ -118,6 +120,8 @@ def _oct_geom(pos_norm: torch.Tensor, cfg: MRHEConfig, quirks: QuirkFlags,
         frac = x - x0
     h = hash_coords(x0.to(torch.int64), cfg.table_size)  # (..., L)
     level_base = torch.arange(cfg.n_levels, device=h.device) * cfg.table_size
+    if compute_dtype is not None:
+        frac = frac.to(compute_dtype)
     offsets = torch.as_tensor(_corner_offsets(cfg.n_dims), dtype=torch.bool,
                               device=pos_norm.device)  # (C, D)
     w = torch.where(offsets, frac[..., None, :], 1.0 - frac[..., None, :])
@@ -140,12 +144,14 @@ def encode_with_oct(oct_rows: torch.Tensor, pos_norm: torch.Tensor,
     """Inference encode from oct-packed rows: one row gather per level.
     (..., D) normalized positions -> (..., L*F) features, level-major.
 
-    Only the f32 path is ported; ``compute_dtype`` (the bf16 query) raises.
+    compute_dtype: when set (the bf16 query, MLPConfig.inference_dtype),
+    the gathered rows, the lerp weights and the corner sum run in it and
+    the output keeps it; the grid index math and the lerp fractions stay in
+    pos_norm's dtype up to that cast. None: all in pos_norm's dtype.
     """
-    if compute_dtype is not None and compute_dtype != pos_norm.dtype:
-        raise NotImplementedError("bf16 query compute is not ported yet")
-    flat, weights = _oct_geom(pos_norm, cfg, quirks, pos_raw)
-    rows = oct_rows[flat].to(pos_norm.dtype)  # (..., L, C*F)
+    cd = compute_dtype if compute_dtype is not None else pos_norm.dtype
+    flat, weights = _oct_geom(pos_norm, cfg, quirks, pos_raw, cd)
+    rows = oct_rows[flat].to(cd)  # (..., L, C*F)
     return _lerp_rows(rows, weights, cfg, pos_norm.shape[:-1])
 
 

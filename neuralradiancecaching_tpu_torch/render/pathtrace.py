@@ -6,8 +6,12 @@ paths the port runs: ``PathTraceConfig.sampler='collision'`` with the cache
 on (``use_nn``, the render and the train-vertex walk) or off (the target
 walks: weight Russian roulette, the march split with its cascade repack
 and the two-phase prefix shade), prefix-packed event shading (f32 or bf16
-event stacks), 'field' light modes and a full (uncapped) cache query. The
-JAX ``lax.scan`` over walk slots is a Python loop.
+event stacks), 'field' light modes and a full (uncapped) cache query; and
+the deferred pieces of the banded frame (render/tiled.py): the walk's
+collect mode, which returns its scatter events unshaded, and the
+frame-global shade and cache query (``shade_and_query``,
+``finish_deferred``). The JAX ``lax.scan`` over walk slots is a Python
+loop.
 
 Randomness: each walk phase draws its uniforms at once, a (steps, 4,
 lanes) tensor [u_rr, u_t, u_hg1, u_hg2] per slot, from a
@@ -112,14 +116,15 @@ class _Walk(NamedTuple):
     etau: torch.Tensor       # (N,) exact entry tau (zeros when off)
 
 
-def _check_collision_slice(cfg: NRCConfig, use_nn: bool) -> None:
+def _check_collision_slice(cfg: NRCConfig, use_nn: bool,
+                           collect_events: bool) -> None:
     pt = cfg.path
     if use_nn and 0 < pt.coll_phase1_steps < min(pt.coll_max_events,
                                                  pt.max_bounces) \
             and pt.coll_live_fraction > 0.0:
         raise NotImplementedError("the NN-mode collision march split is not "
                                   "ported yet")
-    if pt.coll_shade_cap <= 0.0:
+    if pt.coll_shade_cap <= 0.0 and not collect_events:
         raise NotImplementedError("only the prefix-packed event shade is "
                                   "ported yet")
 
@@ -188,7 +193,8 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
                          env_samples: int | None = None,
                          max_bounces: int | None = None,
                          uniforms: torch.Tensor | Sequence[torch.Tensor]
-                         | None = None) -> PathResult:
+                         | None = None, collect_events: bool = False,
+                         entry_tau: Optional[torch.Tensor] = None):
     """Analytic-collision path walk (PathTraceConfig.sampler='collision').
 
     Per slot, ONE collision-row gather gives the optical depth ahead and
@@ -205,8 +211,15 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     uniforms: the walk's uniforms, one (steps, 4, lanes) tensor per phase
     (:func:`walk_uniform_shapes`; a bare tensor for a one-phase walk);
     drawn from ``generator`` only when None.
+
+    collect_events=True skips the shade and returns (PathResult with
+    scattered = 0, events (N, K, 7)): ray-major [pos(3), dir(3), weight(1)]
+    rows, weight 0 for invalid slots, in bf16 when the scene fields are --
+    for the frame-global deferred shade. Its march split is not ported.
+    entry_tau: the precomputed exact slot-0 optical depth per ray (the
+    pose-static hoist of render/tiled.py); computed here when None.
     """
-    _check_collision_slice(cfg, use_nn)
+    _check_collision_slice(cfg, use_nn, collect_events)
     vol = cfg.volume
     pt = cfg.path
     if env_samples is None:
@@ -214,6 +227,9 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     n = ro.shape[0]
     dtype, device = ro.dtype, ro.device
     plan = _plan(cfg, n, use_nn, max_bounces)
+    if collect_events and plan.p1:
+        raise NotImplementedError("the collect-mode march split is not "
+                                  "ported")
     shapes = walk_uniform_shapes(cfg, n, use_nn, max_bounces)
     if uniforms is None:
         uniforms = [torch.rand(sh, generator=generator, dtype=dtype,
@@ -232,7 +248,9 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     # exact slot-0 tau: primary rays enter ON the box face, maximally far
     # from the collision row's voxel-centre anchor
     exact_entry = pt.entry_tau_steps > 0
-    if exact_entry:
+    if exact_entry and entry_tau is not None:
+        etau = entry_tau.to(dtype)
+    elif exact_entry:
         _, exit_e, _ = volume_ops.entry_exit_points(entry, rd, vol.box_size,
                                                     vol.box_center)
         t_e = volume_ops.transmittance(scene.density, entry, exit_e,
@@ -240,9 +258,12 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         etau = torch.clamp(-torch.log(torch.clamp(t_e, min=1e-20)), max=40.0)
     else:
         etau = torch.zeros((n,), dtype=dtype, device=device)
-    # event stacks in bf16 (PathTraceConfig.coll_shade_bf16): the same
-    # values as casting after the walk; the shade upcasts after its gather
-    ys_dtype = torch.bfloat16 if pt.coll_shade_bf16 else dtype
+    # event stacks in bf16 (PathTraceConfig.coll_shade_bf16, or collected
+    # events of bf16 fields): the same values as casting after the walk;
+    # the shade upcasts after its gather
+    ys_bf16 = (cfg.volume.field_dtype == "bfloat16" if collect_events
+               else pt.coll_shade_bf16)
+    ys_dtype = torch.bfloat16 if ys_bf16 else dtype
     weight_rr = 0.0 if use_nn else pt.coll_weight_rr
 
     def step(s: _Walk, u: torch.Tensor):
@@ -334,7 +355,8 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
                  etau=etau)
     if not plan.p1:
         s_fin, ys = scan(init, uniforms[0])
-        scattered = shade(ys, n)
+        scattered = (torch.zeros((n, 3), dtype=dtype, device=device)
+                     if collect_events else shade(ys, n))
     else:
         # march split: full-width slots 0..p1-1, then the live lanes packed
         # to m1 lanes (O(n) cumsum compaction; overflow drops the highest
@@ -365,8 +387,12 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
 
     # primary see-through: T0 = exp(-tau of the camera segment)
     t0_trans = torch.where(hit, torch.exp(-s_fin.tau0), 1.0)
-    return PathResult(scattered, t0_trans, s_fin.q_pos, s_fin.q_dir,
-                      torch.where(s_fin.has_q, s_fin.q_w, 0.0))
+    res = PathResult(scattered, t0_trans, s_fin.q_pos, s_fin.q_dir,
+                     torch.where(s_fin.has_q, s_fin.q_w, 0.0))
+    if collect_events:
+        ev = torch.cat([ys[0], ys[1], ys[2][..., None]], dim=-1)  # (K, N, 7)
+        return res, ev.transpose(0, 1)
+    return res
 
 
 def _prefix_shade(scene: Scene, cfg: NRCConfig, e_pos: torch.Tensor,
@@ -432,3 +458,122 @@ def render_image(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     # collision mode: the primary escape is analytic, rgb += T0 * env
     env_color = envmap_ops.sample_direct(scene.env, rd, hpm=False)
     return rgb + res.transmittance[:, None] * env_color, res.transmittance
+
+
+def shade_deferred(cfg: NRCConfig) -> bool:
+    """True when band shading is deferred to the frame-global finish: the
+    collision sampler with the deterministic 'field' light modes (the
+    deferred shade draws nothing, so moving it out of the bands is exact).
+    The JAX package also defers the 'delta' sampler, not ported here."""
+    return (cfg.path.sampler == "collision"
+            and cfg.path.defer_shade
+            and cfg.env_map.in_scatter_mode == "field"
+            and cfg.path.transmittance_mode == "field")
+
+
+def render_band_deferred(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
+                         rd: torch.Tensor,
+                         generator: Optional[torch.Generator],
+                         entry_tau: Optional[torch.Tensor] = None,
+                         uniforms: Optional[torch.Tensor] = None):
+    """Band-local render work with the cache query -- and, when
+    :func:`shade_deferred`, all event shading -- left to the caller's
+    frame-global pass. Returns (rgb without the cache, trans, query_pos,
+    query_dir, query_weight, events (N, K, 7)); K = 0 when the shade ran in
+    the walk. Each ray is traced at one sample."""
+    if shade_deferred(cfg):
+        res, ev = trace_path_collision(scene, cfg, ro, rd, generator,
+                                       use_nn=True, uniforms=uniforms,
+                                       collect_events=True,
+                                       entry_tau=entry_tau)
+    else:
+        res = trace_path(scene, cfg, ro, rd, generator, use_nn=True,
+                         uniforms=uniforms)
+        ev = torch.zeros((ro.shape[0], 0, 7), dtype=ro.dtype,
+                         device=ro.device)
+    q_w = (torch.zeros_like(res.query_weight) if cfg.render.show_non_nn
+           else res.query_weight)
+    return (res.scattered, res.transmittance, res.query_pos, res.query_dir,
+            q_w, ev)
+
+
+def shade_and_query(scene: Scene, cfg: NRCConfig, rgb: torch.Tensor,
+                    q_pos: torch.Tensor, q_dir: torch.Tensor,
+                    q_w: torch.Tensor, query_fn: QueryFn,
+                    events: Optional[torch.Tensor] = None,
+                    cap_n: Optional[int] = None) -> torch.Tensor:
+    """Frame-global shade of the collected events and the cache query,
+    without the env composite. Returns rgb (N, 3).
+
+    The events' valid slots are a prefix of each ray's slots, so they pack
+    with compact_prefix and sum back with prefix_segment_sum under a cap of
+    ``shade_cap_fraction`` events per frame ray; with ``shade_slot0_dense``
+    slot 0 shades dense and the cap budgets only the tail slots. The query
+    runs on every lane (``query_cap_fraction`` 1) or on the querying lanes
+    packed by compact_select under the cap. cap_n: the base count of both
+    cap fractions (the full frame in the packed pipeline, where n is the
+    packed width). The JAX package's ``query_chunk`` batching served only
+    its compiler's program-size limit: one call here; the cap keeps its
+    rounding up to whole chunks, which decides what a full cap drops.
+    """
+    n = rgb.shape[0]
+    base = cap_n if cap_n is not None else n
+    n_env = cfg.env_map.n_samples
+    if events is not None and events.shape[1] > 0:
+        k = events.shape[1]
+        if cfg.render.shade_slot0_dense and k > 1:
+            rows0 = events[:, 0, :].to(rgb.dtype)
+            w0 = rows0[:, 6]
+            light0 = trace_scene(scene, cfg, rows0[:, 0:3], rows0[:, 3:6],
+                                 n_env)
+            # mask BEFORE weighting: empty slots can shade to NaN
+            rgb = rgb + torch.where((w0 > 0.0)[:, None], w0[:, None] * light0,
+                                    0.0)
+            events = events[:, 1:, :]
+            k = k - 1
+        flat = events.reshape(n * k, 7)
+        counts = torch.sum(events[:, :, 6] > 0.0, dim=1)
+        cap_e = min(n * k,
+                    max(1024, int(base * cfg.render.shade_cap_fraction)))
+        row, slot, val_e = compact.compact_prefix(counts, cap_e)
+        idx = row * k + torch.clamp(slot, max=k - 1)
+        rows = flat[idx].to(rgb.dtype)  # bf16 events upcast after the gather
+        light = trace_scene(scene, cfg, rows[:, 0:3], rows[:, 3:6], n_env)
+        contrib = torch.where(val_e[:, None], rows[:, 6:7] * light, 0.0)
+        rgb = rgb + compact.prefix_segment_sum(contrib, counts, slot)
+
+    frac = cfg.render.query_cap_fraction
+    has_q = q_w > 0.0
+    if frac < 1.0:
+        chunk = cfg.render.query_chunk
+        capq = min(n, max(1024, int(base * frac)))
+        if capq > chunk:  # whole chunks, as the JAX package; may exceed n
+            capq = -(-capq // chunk) * chunk
+        sel, sel_valid = compact.compact_select(has_q, capq)
+        cache_sel = query_fn(q_pos[sel], q_dir[sel])
+        cache_sel = torch.where(sel_valid[:, None], cache_sel, 0.0)
+        cache = compact.scatter_back(n, sel, sel_valid, cache_sel, 0.0)
+    else:
+        cache = torch.where(has_q[:, None], query_fn(q_pos, q_dir), 0.0)
+    return rgb + q_w[:, None] * cache
+
+
+def finish_deferred(scene: Scene, cfg: NRCConfig, rd: torch.Tensor,
+                    rgb: torch.Tensor, trans: torch.Tensor,
+                    q_pos: torch.Tensor, q_dir: torch.Tensor,
+                    q_w: torch.Tensor, query_fn: QueryFn,
+                    events: Optional[torch.Tensor] = None,
+                    env_rgb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Global finish of deferred bands: shade_and_query, then the analytic
+    env see-through composite rgb + T0 * env (frag:848-864 with the
+    collision sampler's exact T0). env_rgb: the precomputed direct env
+    radiance per pixel (pose-static); sampled from ``rd`` when None.
+    Returns the final rgb (N, 3)."""
+    if cfg.path.sampler != "collision":
+        raise NotImplementedError(
+            f"sampler={cfg.path.sampler!r} is not ported yet")
+    rgb = shade_and_query(scene, cfg, rgb, q_pos, q_dir, q_w, query_fn,
+                          events)
+    if env_rgb is None:
+        env_rgb = envmap_ops.sample_direct(scene.env, rd, hpm=False)
+    return rgb + trans[:, None] * env_rgb

@@ -3,8 +3,9 @@
 Counterpart of ``neuralradiancecaching_tpu/scene/scene.py``. ``make_scene``
 builds what the port's modes read -- the corner table, the exit-tau field,
 the HG-convolved scatter field and the collision field -- on the device of
-the density tensor. The premultiplied radiance field and bf16 field storage
-are not ported yet and raise.
+the density tensor, stored in f32 or, with ``VolumeConfig.field_dtype=
+"bfloat16"``, baked in f32 and rounded to bf16. The premultiplied radiance
+field is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -92,8 +93,6 @@ def make_scene(cfg: NRCConfig, density: torch.Tensor | np.ndarray,
                   else "cuda")
     device = torch.device(device)
     density = torch.as_tensor(density, device=device)
-    if cfg.volume.field_dtype != "float32":
-        raise NotImplementedError("bf16 field storage is not ported yet")
     if cfg.env_map.transmittance_mode == "premultiplied":
         raise NotImplementedError("the premultiplied radiance field is not "
                                   "ported yet")
@@ -141,11 +140,15 @@ def make_scene(cfg: NRCConfig, density: torch.Tensor | np.ndarray,
                            steps=cfg.path.collision_field_steps)
     else:
         coll_field = placeholder(collision.ROW_WIDTH)
+    fields = dict(env_t_field=env_t_field, env_l_field=placeholder(12),
+                  env_s_field=env_s_field, coll_field=coll_field)
+    if cfg.volume.field_dtype == "bfloat16":
+        # baked in f32, stored in bf16: half the bytes of every field row
+        # gather; each query upcasts right after its gather
+        fields = {k: v.to(torch.bfloat16) for k, v in fields.items()}
     return Scene(
         density=corner, density_grid=density,
         camera=make_camera(cfg.camera, device),
         dir_light=make_dir_light(cfg.dir_light, device),
         point_light=make_point_light(cfg.point_light, device),
-        env=make_envmap(env_image, cfg.env_map),
-        env_t_field=env_t_field, env_l_field=placeholder(12),
-        env_s_field=env_s_field, coll_field=coll_field)
+        env=make_envmap(env_image, cfg.env_map), **fields)

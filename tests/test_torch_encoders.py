@@ -115,11 +115,22 @@ def test_encode_with_oct_matches(world_space_lerp):
 
 
 def test_encode_with_oct_bf16_raises():
+    """The bf16 oct encode (``compute_dtype``), which raised before config
+    5's bf16 query was ported, now runs: bf16 features of the f32 encode
+    of the same rows and positions, within the rounding of its bf16 terms
+    (eight corner weights, each a product of three rounded factors, times
+    rows below 1 in magnitude: a few bf16 ulps of 1). Parity with the JAX
+    package's bf16 encode is in tests/test_torch_bf16.py."""
     cfg = tcfg_mod.MRHEConfig()
-    with pytest.raises(NotImplementedError):
-        tmrhe.encode_with_oct(torch.zeros((16384 * 16, 16)),
-                              torch.zeros((4, 3)), cfg, tcfg_mod.QuirkFlags(),
-                              compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    rows = torch.rand((16384 * 16, 16), generator=g) * 2.0 - 1.0
+    pos = torch.rand((512, 3), generator=g)
+    quirks = tcfg_mod.QuirkFlags()
+    out = tmrhe.encode_with_oct(rows, pos, cfg, quirks,
+                                compute_dtype=torch.bfloat16)
+    ref = tmrhe.encode_with_oct(rows, pos, cfg, quirks)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape == (512, 32)
+    assert (out.float() - ref).abs().max() <= 4 * 2.0 ** -8  # measured 2.3
 
 
 @pytest.mark.parametrize("raw", [False, True])

@@ -224,8 +224,10 @@ def test_unported_modes_raise(setup, change):
 
 
 def test_port_never_imports_jax():
-    """The port's online frame (train + render), its config and its assets
-    load no module of JAX and none of the JAX package: the port's own
+    """The port's online frame (train + render), the progressive frame of
+    config 5 with bf16 fields and the bf16 query (train, bake, the
+    hoists and ``render_banded``), its config and its assets load no
+    module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
     code = textwrap.dedent("""
@@ -236,7 +238,7 @@ def test_port_never_imports_jax():
         from neuralradiancecaching_tpu_torch.io import assets
         from neuralradiancecaching_tpu_torch.models import nrc
         from neuralradiancecaching_tpu_torch.ops import matmul
-        from neuralradiancecaching_tpu_torch.render import frame
+        from neuralradiancecaching_tpu_torch.render import frame, tiled
         from neuralradiancecaching_tpu_torch.scene import scene
         R = dataclasses.replace
         cfg = C.nrc_online_config(16, 16)
@@ -260,6 +262,18 @@ def test_port_never_imports_jax():
         assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
         assert bool(torch.isfinite(out.mse)) and int(st.opt_step) == 1
         matmul.matmul(torch.ones(2, 3), torch.ones(3, 4))
+        c5 = R(cfg, volume=R(cfg.volume, field_dtype="bfloat16"),
+               mlp=R(cfg.mlp, inference_dtype="bfloat16"),
+               render=R(cfg.render, live_pack_fraction=0.5,
+                        live_tau_threshold=0.005, shade_slot0_dense=True))
+        sc = scene.make_scene(c5, dens, assets.synthesize_sky(16, 32),
+                              device="cpu")
+        st, _ = frame.train_only_step(nrc.init_state(g, c5, device="cpu"),
+                                      sc, g, c5)
+        img = tiled.render_banded(
+            st, sc, g, c5, 4, env_rgb=tiled.frame_env_color(sc, c5),
+            baked=nrc.bake(st, c5), pack=tiled.frame_live_pack(sc, c5, 4))
+        assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

@@ -22,16 +22,23 @@ density grid, fields at (32, 24, 40) voxels):
   shade and the bf16 cache query through K1's bf16 mode).
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
-(csrc/fused_mlp.cu, the query MLP: its f32 mode on config 4's paths, its
-bf16 mode on config 5's) at the shapes the paths give it, and K2
-(csrc/matmul.cu, the generic fp32 matrix product, on no path of the frame)
-at the JAX test's shapes and at 4096^3. Run from the repository root:
+(csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
+operands: its f32 mode on config 4's paths, its bf16 mode on config 5's)
+at the shapes the paths give it and at 64k +- 1 rows, with a NaN and an
+inf row, and K2 (csrc/matmul.cu, the generic fp32 matrix product as
+3xTF32 on the tensor cores, on no path of the frame) at the JAX test's
+shapes, two ragged ones and 4096^3 -- and logs each one's error against a
+float64 product on the card beside it, and the count of HGMMA (wgmma)
+instructions in each built library. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases: device; both kernels built together; K1 and K2 vs plain with
-timings; scene bake; cache state; frames through ``render_only_step`` and
-then through ``frame_step``; 32 ``train_only_step``s whose mse must fall;
+Phases: device; both kernels built together, their HGMMA counts; K1 and
+K2 vs plain and vs float64 with timings (K1's launch alone on weights
+packed once, and its whole wrapper; K1's pack kernel against the plain
+pack step; K1's wide-output form; NaN and inf rows); scene bake; cache
+state; frames through ``render_only_step`` and then through
+``frame_step``; 32 ``train_only_step``s whose mse must fall;
 both frames' profiles; K1 on the frame's real feature rows; the port on
 the card vs the port on the CPU at a small size with the same random draws
 (the CPU path is the one the tests hold to the JAX package), for the
@@ -67,14 +74,16 @@ WIDTH = HEIGHT = 512
 N_FRAMES = 4
 TRAIN_STEPS = 32
 ORBIT_POSES = 8
-K1_SIZES = (1, 5, 511, 513, WIDTH * HEIGHT)
-# K1 vs the plain torch MLP, both exact fp32 with another summation order
-# over 64 terms per layer: |kernel - plain| <= K1_ATOL + K1_RTOL * |plain|
+K1_EDGE_SIZES = (1, 5, 63, 65, 127, 129, 511, 513)
+K1_SIZES = K1_EDGE_SIZES + (WIDTH * HEIGHT,)
+# K1 vs the plain torch MLP: the kernel's products of split-bf16 pieces are
+# exact, so both are fp32 with another summation order over 64 terms per
+# layer: |kernel - plain| <= K1_ATOL + K1_RTOL * |plain|
 K1_RTOL, K1_ATOL = 1e-4, 1e-5
 # K2 vs torch.matmul (TF32 off), the bound tests/test_nn_matmul.py holds
-# the Pallas kernel to: |kernel - plain| <= K2_TOL + K2_TOL * |plain|
-K2_SHAPES = ((64, 64, 64), (300, 200, 100), (512, 512, 512),
-             (4096, 4096, 4096))
+# the Pallas kernel to: |kernel - ref| <= K2_TOL + K2_TOL * |ref|
+K2_SHAPES = ((1, 1, 1), (129, 17, 130), (64, 64, 64), (300, 200, 100),
+             (512, 512, 512), (4096, 4096, 4096))
 K2_TOL = 2e-4
 # the card vs the CPU port at the small size: the render test's tolerance;
 # after one online frame also the training tests' bounds (mse 1e-3
@@ -85,15 +94,17 @@ K2_TOL = 2e-4
 # turns summation-order noise into steps of a share of lr.
 SMALL_FRAC_OK, SMALL_REL_MEAN = 0.995, 1e-4
 SMALL_MSE_REL, SMALL_PARAM_TOL, SMALL_HASH_FRAC = 1e-3, 1e-6, 0.999
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
-FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): the
+# tensor cores' bf16 rate bounds any route to a kernel's useful work; the
+# FP32 FMA pipe's is logged beside it (the yardstick of PRs 1-3)
+TENSOR_FLOPS, FP32_FLOPS, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # config 5's progressive frame (bench.py:69-84: 1920x1080, spp 1, 30-row
 # bands; bench.py:153 three warm-up train steps), 4 timed frames after one
 # warm-up frame, and K1's bf16 mode at the tests' sizes (the frame's
 # packed-lane count is added once the pack is built)
 P_WIDTH, P_HEIGHT, BAND_ROWS = 1920, 1080, 30
 P_FRAMES, P_WARMUP_STEPS = 4, 3
-K1_BF16_SIZES = (1, 5, 511, 513)
+K1_BF16_SIZES = K1_EDGE_SIZES
 # the card vs the CPU port on the small packed frame: f32 fields at the
 # render bound above; bf16 fields and the bf16 query at the bound
 # tests/test_torch_tiled.py holds the port to against JAX (>= 99% of
@@ -141,14 +152,14 @@ def slice_config(width: int, height: int, small: bool = False):
     return cfg
 
 
-def he_params(cfg, gen: torch.Generator, device) -> dict:
+def he_params(mlp_cfg, gen: torch.Generator, device) -> dict:
     """MLP weights whose activations stay O(1) through every layer (the
     0.01 init shrinks them ~20x per layer), so the comparison is not one of
     near-zero numbers."""
     from neuralradiancecaching_tpu_torch.ops import mlp as mlp_ops
-    dims = mlp_ops.layer_dims(cfg.mlp)
+    dims = mlp_ops.layer_dims(mlp_cfg)
     out = {}
-    for i in range(cfg.mlp.n_layers):
+    for i in range(mlp_cfg.n_layers):
         out[f"w{i}"] = torch.randn((dims[i], dims[i + 1]), generator=gen,
                                    device=device) * (2.0 / dims[i]) ** 0.5
         out[f"b{i}"] = torch.randn((dims[i + 1],), generator=gen,
@@ -156,43 +167,144 @@ def he_params(cfg, gen: torch.Generator, device) -> dict:
     return out
 
 
+def k1_float64(params, x, mlp_cfg):
+    """The MLP over the kernel's inputs in float64 on the card (bf16 rows:
+    over the bf16-rounded parameters, as the kernel takes them)."""
+    from neuralradiancecaching_tpu_torch.ops import mlp as mlp_ops
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    p64 = {k: v.to(dt).to(torch.float64) for k, v in params.items()}
+    return mlp_ops.apply(p64, x.to(torch.float64), mlp_cfg)
+
+
 def compare_k1(params, x, mlp_cfg):
-    """Launch K1 and the plain version on x; returns (max_abs, max_rel)."""
+    """Launch K1 and the plain version on x and hold the kernel to it;
+    returns (max abs and max rel error vs plain, max abs error of the
+    kernel and of the plain version vs the float64 forward)."""
     from neuralradiancecaching_tpu_torch.ops import fused_mlp
     got = fused_mlp.apply_kernel(params, x, mlp_cfg)
     ref = fused_mlp.apply_plain(params, x, mlp_cfg)
+    f64 = k1_float64(params, x, mlp_cfg)
     sync()
     check(got.shape == ref.shape, f"K1 shape {tuple(got.shape)}")
+    if not got.numel():
+        return 0.0, 0.0, 0.0, 0.0
     err = (got - ref).abs()
     check(bool(torch.isfinite(got).all()), "K1 output not finite")
     check(bool((err <= K1_ATOL + K1_RTOL * ref.abs()).all()),
           f"K1 disagrees with plain at n={x.shape[0]}: max abs "
           f"{float(err.max())}")
-    rel = float((err / ref.abs().clamp(min=1e-6)).max()) if err.numel() else 0
-    return float(err.max()) if err.numel() else 0.0, rel
+    rel = float((err / ref.abs().clamp(min=1e-6)).max())
+    return (float(err.max()), rel, float((got - f64).abs().max()),
+            float((ref - f64).abs().max()))
 
 
-def compare_k2(a, b):
-    """Launch K2 and the plain version on (a, b); returns (max_abs,
-    max_rel)."""
+def check_k1_pack(params, mlp_cfg, bf16: bool, dev) -> None:
+    """K1's pack kernel writes the plain pack step's buffer bit for bit."""
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp
+    got = fused_mlp.pack_params(params, mlp_cfg, bf16, dev).buffer
+    ref = fused_mlp.pack_params_plain(params, mlp_cfg, bf16, dev).buffer
+    sync()
+    mode = "bf16" if bf16 else "f32"
+    check(torch.equal(got, ref),
+          f"K1's pack kernel ({mode} mode) differs from the plain pack step")
+
+
+def check_k1_wide(dev) -> None:
+    """K1's other output width (the m64n64 output layer, out_features > 8)
+    and the sigmoid, with the output activation, in both modes: a 4-layer
+    MLP with 20 outputs held to the plain version at 513 rows."""
+    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    mlp_cfg = cfg_mod.MLPConfig(n_layers=4, out_features=20,
+                                activation="sigmoid", output_relu=True)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    params = he_params(mlp_cfg, gen, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_k1_pack(params, mlp_cfg, dtype == torch.bfloat16, dev)
+        x = torch.randn((513, 64), generator=gen, device=dev).to(dtype)
+        abs_e, _, f64_e, _ = compare_k1(params, x, mlp_cfg)
+        log(f"K1 {str(dtype).split('.')[-1]}, 4 layers, 20 sigmoid outputs, "
+            f"513 rows: pack kernel == plain pack; vs plain max abs "
+            f"{abs_e:.3e}, vs float64 {f64_e:.3e}")
+
+
+def check_k1_nonfinite(params, mlp_cfg, dtype, dev) -> None:
+    """A row holding NaN, +inf or -inf gives a non-finite output row from
+    the kernel, as from the plain version; the other rows are untouched."""
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp
+    x = torch.randn((129, mlp_cfg.in_features),
+                    generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    bad = {3: float("nan"), 64: float("inf"), 128: float("-inf")}
+    for row, v in bad.items():
+        x[row, 7] = v
+    x = x.to(dtype)
+    got = fused_mlp.apply_kernel(params, x, mlp_cfg)
+    ref = fused_mlp.apply_plain(params, x, mlp_cfg)
+    sync()
+    rows = torch.tensor(sorted(bad), device=dev)
+    good = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    good[rows] = False
+    check(not bool(torch.isfinite(got[rows]).any(dim=1).any()),
+          "K1 gave a finite output for a NaN or inf input row")
+    check(not bool(torch.isfinite(ref[rows]).all(dim=1).any()),
+          "the plain MLP gave a finite row for a NaN or inf input row")
+    err = (got[good] - ref[good]).abs()
+    check(bool(torch.isfinite(got[good]).all())
+          and bool((err <= K1_ATOL + K1_RTOL * ref[good].abs()).all()),
+          "K1's finite rows beside NaN and inf rows disagree with plain")
+    log(f"K1 {str(dtype).split('.')[-1]} with NaN / +inf / -inf rows "
+        f"{sorted(bad)} of 129: those output rows non-finite (kernel: every "
+        f"output; plain: at least one), the other rows within the bound "
+        f"(max abs {float(err.max()):.3e})")
+
+
+def compare_k2(a, b) -> dict:
+    """Launch K2 on (a, b) and hold it, at the unchanged bound K2_TOL +
+    K2_TOL |ref|, to the float64 product rounded to fp32 (the exact answer)
+    at every shape, and to the plain version (torch.matmul, TF32 off) at
+    every shape where the exact product itself meets that bound against
+    the plain version. torch.matmul sums K in order in fp32: at 4096^3 it
+    lies farther than the bound from the exact product at a few dozen of
+    the 16.8M outputs, and so would any kernel more exact than it. Returns
+    each pair's max abs difference and count of outputs outside the
+    bound."""
     from neuralradiancecaching_tpu_torch.ops import matmul
     got = matmul.matmul_kernel(a, b)
-    ref = matmul.matmul_plain(a, b)
+    plain = matmul.matmul_plain(a, b)
+    exact = (a.double() @ b.double()).float()
     sync()
-    check(got.shape == ref.shape, f"K2 shape {tuple(got.shape)}")
-    err = (got - ref).abs()
+    check(got.shape == plain.shape, f"K2 shape {tuple(got.shape)}")
     check(bool(torch.isfinite(got).all()), "K2 output not finite")
-    check(bool((err <= K2_TOL + K2_TOL * ref.abs()).all()),
-          f"K2 disagrees with plain at {tuple(a.shape)} @ {tuple(b.shape)}: "
-          f"max abs {float(err.max())}")
-    return float(err.max()), float((err / ref.abs().clamp(min=1e-6)).max())
+
+    def diff(x, ref):
+        err = (x - ref).abs()
+        return (float(err.max()),
+                int((err > K2_TOL + K2_TOL * ref.abs()).sum()))
+    out = {"kernel_vs_plain": diff(got, plain),
+           "kernel_vs_exact": diff(got, exact),
+           "plain_vs_exact": diff(plain, exact),
+           "exact_vs_plain": diff(exact, plain)}
+    shape = f"{tuple(a.shape)} @ {tuple(b.shape)}"
+    check(out["kernel_vs_exact"][1] == 0,
+          f"K2 disagrees with the float64 product at {shape}: {out}")
+    out["plain_held"] = out["exact_vs_plain"][1] == 0
+    if out["plain_held"]:
+        check(out["kernel_vs_plain"][1] == 0,
+              f"K2 disagrees with plain at {shape}: {out}")
+    return out
 
 
 def bound_ms(flop: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of the operations
-    over the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    """The least time any route on the card could take for the useful
+    work: the larger of the operations over the tensor cores' bf16 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flop / TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fp32_fma_bound_ms(flop: float, nbytes: float) -> float:
+    """The same with the FP32 FMA pipe's peak (the bound of PRs 1-3)."""
+    return max(flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3)
 
 
 def time_ms(fn, reps: int = 10, rounds: int = 5):
@@ -413,20 +525,50 @@ def probe_caps(scene, cfg, gen):
                      shade_cap_fraction=shade_cap, live_pack_fraction=pack)
 
 
-def time_k1(params, x, mlp_cfg):
-    """K1 and its plain version on x, in turns on one card (plain, kernel,
-    kernel, plain): (kernel ms, plain ms, each pair)."""
+def time_k1(params, x, mlp_cfg) -> dict:
+    """K1's launch alone on weights packed once (the kernel's time), its
+    whole wrapper (pack + launch, what a caller pays a call) and the plain
+    version on x, in turns on one card (plain, launch, wrapper, wrapper,
+    launch, plain): {name: (median ms, both runs)}."""
     from neuralradiancecaching_tpu_torch.ops import fused_mlp
-    k1 = lambda: fused_mlp.apply_kernel(params, x, mlp_cfg)  # noqa: E731
-    plain = lambda: fused_mlp.apply_plain(params, x, mlp_cfg)  # noqa: E731
-    for fn in (plain, k1):  # warm-up
+    packed = fused_mlp.pack_params(params, mlp_cfg,
+                                   x.dtype == torch.bfloat16, x.device)
+    fns = {"launch": lambda: fused_mlp.launch(packed, x, mlp_cfg),
+           "wrapper": lambda: fused_mlp.apply_kernel(params, x, mlp_cfg),
+           "plain": lambda: fused_mlp.apply_plain(params, x, mlp_cfg)}
+    for fn in fns.values():  # warm-up
         fn()
     sync()
-    t_plain_a, t_k1_a = time_ms(plain), time_ms(k1)
-    t_k1_b, t_plain_b = time_ms(k1), time_ms(plain)
-    return (statistics.median([t_k1_a, t_k1_b]),
-            statistics.median([t_plain_a, t_plain_b]),
-            (t_k1_a, t_k1_b), (t_plain_a, t_plain_b))
+    runs: dict[str, list] = {k: [] for k in fns}
+    for k in ("plain", "launch", "wrapper", "wrapper", "launch", "plain"):
+        runs[k].append(time_ms(fns[k]))
+    return {k: (statistics.median(v), tuple(v)) for k, v in runs.items()}
+
+
+def k1_record(name, launches, err, err_f64, times, flop, nbytes) -> dict:
+    """K1's entry of the kernels' record line."""
+    bound, by = bound_ms(flop, nbytes)
+    return {"name": name, "route": "cuda",
+            "source": "neuralradiancecaching_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "neuralradiancecaching_tpu/ops/pallas_mlp.py:37",
+            "launches": launches, "max_abs_err": err,
+            "max_abs_err_f64": err_f64, "ms": times["wrapper"][0],
+            "launch_ms": times["launch"][0], "plain_ms": times["plain"][0],
+            "bound_ms": bound, "bound_by": by,
+            "fp32_fma_bound_ms": fp32_fma_bound_ms(flop, nbytes),
+            "library_ms": None}
+
+
+def log_k1_times(label, rows, times, flop, nbytes) -> None:
+    bound, by = bound_ms(flop, nbytes)
+    launch = times["launch"][0]
+    log(f"{label} at {rows} rows: launch alone {launch:.4f} ms "
+        f"{times['launch'][1]}, {flop / launch / 1e9:.2f} TFLOP/s useful; "
+        f"whole wrapper (pack + launch) {times['wrapper'][0]:.4f} ms "
+        f"{times['wrapper'][1]}; plain {times['plain'][0]:.4f} ms "
+        f"{times['plain'][1]}; bound {bound:.4f} ms by {by} "
+        f"({flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; FP32 FMA bound "
+        f"{fp32_fma_bound_ms(flop, nbytes):.4f} ms)")
 
 
 def k1_work(mlp_cfg, rows: int, row_bytes: int) -> tuple[float, float]:
@@ -511,7 +653,7 @@ def progressive_small_vs_cpu(dev, field_dtype: str) -> None:
     state = nrc.init_state(torch.Generator().manual_seed(2), cfg,
                            device="cpu")
     state = dataclasses.replace(state, mlp_params=he_params(
-        cfg, torch.Generator().manual_seed(3), "cpu"))
+        cfg.mlp, torch.Generator().manual_seed(3), "cpu"))
     t_u = targets.draw_train_uniforms(cfg, torch.Generator().manual_seed(6),
                                       "cpu")
     u, out = None, []
@@ -630,21 +772,20 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     mlp = cfg.mlp
     params_bf = {k: v.to(torch.bfloat16) for k, v in params_he.items()}
     kgen = torch.Generator(device=dev).manual_seed(8)
-    err = 0.0
+    err = err_f64 = 0.0
     for n in K1_BF16_SIZES + (n_packed,):
         x = torch.randn((n, mlp.in_features), generator=kgen,
                         device=dev).to(torch.bfloat16)
-        abs_e, rel_e = compare_k1(params_bf, x, mlp)
-        err = max(err, abs_e)
+        abs_e, rel_e, f64_e, plain_f64 = compare_k1(params_bf, x, mlp)
+        err, err_f64 = max(err, abs_e), max(err_f64, f64_e)
         log(f"K1 bf16 vs plain n={n}: max abs {abs_e:.3e} max rel "
-            f"{rel_e:.3e}")
-    k1_ms, plain_ms, k1_pair, plain_pair = time_k1(params_bf, x, mlp)
+            f"{rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
+            f"{plain_f64:.3e}")
+    check_k1_nonfinite(params_bf, mlp, torch.bfloat16, dev)
+    check_k1_pack(params_bf, mlp, True, dev)
+    k1_times = time_k1(params_bf, x, mlp)
     flop, nbytes = k1_work(mlp, n_packed, 2 * mlp.in_features)
-    bound, by = bound_ms(flop, nbytes)
-    log(f"K1 bf16 at {n_packed} rows: {k1_ms:.4f} ms {k1_pair}; plain "
-        f"{plain_ms:.4f} ms {plain_pair}; K1 {flop / k1_ms / 1e9:.2f} "
-        f"TFLOP/s fp32; bound {bound:.4f} ms by {by} ({flop / 1e9:.2f} "
-        f"GFLOP, {nbytes / 1e6:.2f} MB)")
+    log_k1_times("K1 bf16", n_packed, k1_times, flop, nbytes)
     del x
 
     # -- 8f. 4+1 progressive frames -----------------------------------------
@@ -732,10 +873,11 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     for label, params in (("state weights", {
             k: v.to(torch.bfloat16) for k, v in state.mlp_params.items()}),
             ("O(1) weights", params_bf)):
-        abs_e, rel_e = compare_k1(params, feats, mlp)
-        err = max(err, abs_e)
+        abs_e, rel_e, f64_e, plain_f64 = compare_k1(params, feats, mlp)
+        err, err_f64 = max(err, abs_e), max(err_f64, f64_e)
         log(f"K1 bf16 vs plain on real rows ({label}): max abs {abs_e:.3e} "
-            f"max rel {rel_e:.3e}")
+            f"max rel {rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
+            f"{plain_f64:.3e}")
     del scene, state, pack, env_rgb, baked, feats, ev, qp, qd, qw
     torch.cuda.empty_cache()
 
@@ -743,12 +885,8 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     for field_dtype in ("float32", "bfloat16"):
         progressive_small_vs_cpu(dev, field_dtype)
 
-    return {"name": "fused_mlp_bf16", "route": "cuda",
-            "source": "neuralradiancecaching_tpu_torch/csrc/fused_mlp.cu",
-            "replaces": "neuralradiancecaching_tpu/ops/pallas_mlp.py:37",
-            "launches": launches, "max_abs_err": err, "ms": k1_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+    return k1_record("fused_mlp_bf16", launches, err, err_f64, k1_times,
+                     flop, nbytes)
 
 
 def main() -> int:
@@ -790,36 +928,51 @@ def main() -> int:
         for line in kernels.BUILD_LOG[kname].splitlines():
             log(f"  nvcc: {line}")
     log(f"both builds: {time.perf_counter() - t0:.2f} s wall")
+    for kname in ("fused_mlp", "matmul"):
+        n_hgmma = kernels.sass(kname).count("HGMMA")
+        log(f"{kname}: {n_hgmma} HGMMA (wgmma) instructions in its SASS")
+        check(n_hgmma > 0, f"{kname} has no wgmma instruction")
 
     cfg = slice_config(WIDTH, HEIGHT)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     # -- 3. K1 vs plain on random rows, and timings -----------------------
-    params_he = he_params(cfg, gen, dev)
-    k1_err = 0.0
+    params_he = he_params(cfg.mlp, gen, dev)
+    k1_err = k1_err_f64 = 0.0
     for n in K1_SIZES:
         x = torch.randn((n, cfg.mlp.in_features), generator=gen, device=dev)
-        abs_e, rel_e = compare_k1(params_he, x, cfg.mlp)
-        k1_err = max(k1_err, abs_e)
-        log(f"K1 vs plain n={n}: max abs {abs_e:.3e} max rel {rel_e:.3e}")
+        abs_e, rel_e, f64_e, plain_f64 = compare_k1(params_he, x, cfg.mlp)
+        k1_err, k1_err_f64 = max(k1_err, abs_e), max(k1_err_f64, f64_e)
+        log(f"K1 vs plain n={n}: max abs {abs_e:.3e} max rel {rel_e:.3e}; "
+            f"vs float64: kernel {f64_e:.3e}, plain {plain_f64:.3e}")
+    check_k1_nonfinite(params_he, cfg.mlp, torch.float32, dev)
+    for params in (params_he, nrc.init_state(torch.Generator(
+            device=dev).manual_seed(0), cfg).mlp_params):
+        check_k1_pack(params, cfg.mlp, False, dev)
+    check_k1_wide(dev)
     x_big = torch.randn((WIDTH * HEIGHT, cfg.mlp.in_features),
                         generator=gen, device=dev)
-    k1_ms, plain_ms, k1_pair, plain_pair = time_k1(params_he, x_big, cfg.mlp)
+    k1_times = time_k1(params_he, x_big, cfg.mlp)
     k1_flop, k1_bytes = k1_work(cfg.mlp, WIDTH * HEIGHT, 4 * 64)
-    k1_bound, k1_by = bound_ms(k1_flop, k1_bytes)
-    log(f"K1 at {WIDTH * HEIGHT} rows: {k1_ms:.4f} ms {k1_pair}; plain "
-        f"{plain_ms:.4f} ms {plain_pair}; K1 {k1_flop / k1_ms / 1e9:.2f} "
-        f"TFLOP/s fp32; bound {k1_bound:.4f} ms by {k1_by}")
+    log_k1_times("K1", WIDTH * HEIGHT, k1_times, k1_flop, k1_bytes)
 
-    # -- 3b. K2 vs plain at the JAX test's shapes and at 4096^3 -------------
-    k2_err = 0.0
+    # -- 3b. K2 vs plain and float64: the JAX test's shapes, two ragged
+    #    ones, 4096^3 ---------------------------------------------------------
+    k2_err = k2_err_f64 = 0.0
     for m, k, n in K2_SHAPES:
         a = torch.randn((m, k), generator=gen, device=dev)
         b = torch.randn((k, n), generator=gen, device=dev)
-        abs_e, rel_e = compare_k2(a, b)
-        k2_err = max(k2_err, abs_e)
-        log(f"K2 vs plain {m}x{k}x{n}: max abs {abs_e:.3e} max rel "
-            f"{rel_e:.3e}")
+        res = compare_k2(a, b)
+        k2_err = max(k2_err, res["kernel_vs_plain"][0])
+        k2_err_f64 = max(k2_err_f64, res["kernel_vs_exact"][0])
+        log(f"K2 {m}x{k}x{n}: max abs diff (outputs outside "
+            f"{K2_TOL:g} + {K2_TOL:g}|ref|): kernel vs plain "
+            f"{res['kernel_vs_plain'][0]:.3e} ({res['kernel_vs_plain'][1]}), "
+            f"kernel vs float64 {res['kernel_vs_exact'][0]:.3e} "
+            f"({res['kernel_vs_exact'][1]}), plain vs float64 "
+            f"{res['plain_vs_exact'][0]:.3e} ({res['plain_vs_exact'][1]}), "
+            f"float64 vs plain ({res['exact_vs_plain'][1]}); held to plain: "
+            f"{res['plain_held']}")
     k2 = lambda: matmul.matmul_kernel(a, b)  # noqa: E731
     k2_plain = lambda: matmul.matmul_plain(a, b)  # noqa: E731
     for fn in (k2_plain, k2):  # warm-up
@@ -829,12 +982,14 @@ def main() -> int:
     t_k2_b, t_mm_b = time_ms(k2, 5, 3), time_ms(k2_plain, 5, 3)
     k2_ms = statistics.median([t_k2_a, t_k2_b])
     mm_ms = statistics.median([t_mm_a, t_mm_b])
-    k2_flop = 2.0 * m * n * k
-    k2_bound, k2_by = bound_ms(k2_flop, 4.0 * (m * k + k * n + m * n))
-    log(f"K2 at {m}x{k}x{n}: {k2_ms:.4f} ms ({t_k2_a:.4f}, {t_k2_b:.4f}), "
-        f"{k2_flop / k2_ms / 1e9:.2f} TFLOP/s; torch.matmul (TF32 off) "
-        f"{mm_ms:.4f} ms ({t_mm_a:.4f}, {t_mm_b:.4f}); fp32 bound "
-        f"{k2_bound:.4f} ms by {k2_by}")
+    k2_flop, k2_bytes = 2.0 * m * n * k, 4.0 * (m * k + k * n + m * n)
+    k2_bound, k2_by = bound_ms(k2_flop, k2_bytes)
+    log(f"K2 at {m}x{k}x{n} (split pre-pass + tensor-core kernel): "
+        f"{k2_ms:.4f} ms ({t_k2_a:.4f}, {t_k2_b:.4f}), "
+        f"{k2_flop / k2_ms / 1e9:.2f} TFLOP/s useful; torch.matmul (TF32 "
+        f"off) {mm_ms:.4f} ms ({t_mm_a:.4f}, {t_mm_b:.4f}); bound "
+        f"{k2_bound:.4f} ms by {k2_by}; FP32 FMA bound "
+        f"{fp32_fma_bound_ms(k2_flop, k2_bytes):.4f} ms")
     del a, b
 
     # -- 4. scene at full size ---------------------------------------------
@@ -914,10 +1069,11 @@ def main() -> int:
         f"{float((res.query_weight > 0).float().mean()):.4f} querying")
     for label, params in (("state weights", state.mlp_params),
                           ("O(1) weights", params_he)):
-        abs_e, rel_e = compare_k1(params, feats, cfg.mlp)
-        k1_err = max(k1_err, abs_e)
+        abs_e, rel_e, f64_e, plain_f64 = compare_k1(params, feats, cfg.mlp)
+        k1_err, k1_err_f64 = max(k1_err, abs_e), max(k1_err_f64, f64_e)
         log(f"K1 vs plain on real rows ({label}): max abs {abs_e:.3e} "
-            f"max rel {rel_e:.3e}")
+            f"max rel {rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
+            f"{plain_f64:.3e}")
     sync()
 
     # -- 6c. online frames through frame_step (train, then render) ----------
@@ -993,7 +1149,7 @@ def main() -> int:
     s_state = nrc.init_state(torch.Generator().manual_seed(2), small,
                              device="cpu")
     he_state = dataclasses.replace(s_state, mlp_params=he_params(
-        small, torch.Generator().manual_seed(3), "cpu"))
+        small.mlp, torch.Generator().manual_seed(3), "cpu"))
     k_steps = min(small.path.coll_max_events, small.path.max_bounces)
     u = torch.rand((k_steps, 4, 32 * 32), generator=torch.Generator()
                    .manual_seed(4))
@@ -1050,18 +1206,16 @@ def main() -> int:
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        {"name": "fused_mlp", "route": "cuda",
-         "source": "neuralradiancecaching_tpu_torch/csrc/fused_mlp.cu",
-         "replaces": "neuralradiancecaching_tpu/ops/pallas_mlp.py:37",
-         "launches": launches_online, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+        k1_record("fused_mlp", launches_online, k1_err, k1_err_f64, k1_times,
+                  k1_flop, k1_bytes),
         k1_bf16,
         {"name": "matmul", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/matmul.cu",
          "replaces": "neuralradiancecaching_tpu/ops/pallas_matmul.py:30",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": mm_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "max_abs_err_f64": k2_err_f64, "ms": k2_ms, "plain_ms": mm_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by,
+         "fp32_fma_bound_ms": fp32_fma_bound_ms(k2_flop, k2_bytes),
          "library_ms": mm_ms}]}
     log(json.dumps(record))
     log(nvidia_smi())

@@ -108,6 +108,15 @@ def build(name: str) -> Path:
     return build_all([name])[0]
 
 
+def sass(name: str) -> str:
+    """The machine code of the built ``csrc/<name>.cu``, as the toolkit's
+    ``cuobjdump -sass`` prints it (to see which instructions it uses)."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(build(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it at first use."""
     lib = _LIBS.get(name)

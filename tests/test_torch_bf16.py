@@ -330,7 +330,10 @@ def test_k1_bf16_kernel_matches_plain_on_card():
     g = torch.Generator(device="cuda").manual_seed(7)
     params = {k: v * 20.0 for k, v in tmlp.init_params(
         g, mlp).items()}
-    for n in (1, 5, 511, 513, 4096):
+    packed = fused_mlp.pack_params(params, mlp, bf16=True)
+    assert torch.equal(packed.buffer, fused_mlp.pack_params_plain(
+        params, mlp, bf16=True, device="cuda").buffer)
+    for n in (1, 5, 63, 65, 127, 129, 511, 513, 4096):
         x = torch.randn((n, 64), generator=g, device="cuda").to(
             torch.bfloat16)
         before = fused_mlp.LAUNCHES_BF16
@@ -340,3 +343,8 @@ def test_k1_bf16_kernel_matches_plain_on_card():
         torch.testing.assert_close(
             out, fused_mlp.apply_plain(params, x, mlp), rtol=1e-4,
             atol=1e-5)
+    x[3, 5], x[64, 0] = float("nan"), float("inf")
+    out = fused_mlp.launch(packed, x, mlp)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(out[[3, 64]]).any()
+    assert torch.isfinite(out[[0, 4, 63, 65]]).all()

@@ -73,10 +73,13 @@ def test_kernel_rejects_unsupported(a_shape, b_shape, dtype, transpose):
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run chip_smoke.py there)")
-    for m, k, n in SHAPES + [(1, 1, 1), (129, 17, 130)]:
+    for m, k, n in SHAPES + [(1, 1, 1), (129, 17, 130), (1, 4, 1),
+                             (127, 33, 129), (65, 129, 63)]:
         a, b = (torch.tensor(x, device="cuda")
                 for x in _operands(m, k, n, 1))
         out = tmm.matmul_kernel(a, b)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, tmm.matmul_plain(a, b), rtol=RTOL,
                                    atol=ATOL)
+        exact = (a.double() @ b.double()).float()
+        torch.testing.assert_close(out, exact, rtol=RTOL, atol=ATOL)

@@ -134,21 +134,35 @@ def test_init_params_layout_matches_jax():
 
 def test_packed_layout_reproduces_forward():
     """The kernel's packed-weight layout, read back the way the kernel reads
-    it (row-major (in, out_pad) blocks, zero pad columns), gives the plain
-    forward: the wrapper's layout is checked here, the arithmetic on the
-    card."""
+    it (per layer the bf16 pieces of W^T in the 128-byte swizzle, summed;
+    the output layer's 8 rows zero-padded; then the fp32 biases), gives the
+    plain forward: the wrapper's layout is checked here, the arithmetic on
+    the card."""
     cfg = MLPConfig(out_features=3)
     params = _torch(_params(cfg, 5, scale=0.2))
-    packed = fused_mlp.pack_params(params, port_cfg(cfg)).numpy()
+    packed = fused_mlp.pack_params(params, port_cfg(cfg))
+    assert not packed.bf16 and packed.buffer.dtype == torch.uint8
+    raw = packed.buffer.numpy()
     x = np.random.default_rng(5).standard_normal((33, 64)).astype(np.float32)
-    h, off, pad = x.astype(np.float64), 0, 4
+    ws, off, pad = [], 0, 8
     for i in range(cfg.n_layers):
-        out = 64 if i < cfg.n_layers - 1 else pad
-        w = packed[off:off + 64 * out].reshape(64, out)
-        b = packed[off + 64 * out:off + 64 * out + out]
-        off += 64 * out + out
+        rows = 64 if i < cfg.n_layers - 1 else pad
+        index = fused_mlp.swizzle_index(rows).numpy()
+        wt = np.zeros((rows, 64))
+        for _ in range(3):  # hi, mid, lo
+            words = raw[off:off + rows * 128].view(np.uint16)
+            piece = (words.astype(np.uint32) << 16).view(np.float32)
+            wt += piece[index].reshape(rows, 64)
+            off += rows * 128
+        ws.append(wt.T)
+    biases = raw[off:].view(np.float32)
+    h, boff = x.astype(np.float64), 0
+    for i, w in enumerate(ws):
+        b = biases[boff:boff + w.shape[1]]
+        boff += w.shape[1]
         h = np.maximum(h @ w + b, 0.0)
-    assert off == packed.size and packed.size % 4 == 0
+    assert boff == 64 * (cfg.n_layers - 1) + pad
+    assert off + 4 * boff == raw.size and raw.size % 16 == 0
     np.testing.assert_allclose(h[:, :3], fused_mlp.apply_plain(
         params, torch.tensor(x), cfg).numpy(), rtol=1e-5, atol=1e-6)
     assert np.all(h[:, 3:] == 0.0)
@@ -198,10 +212,18 @@ def test_kernel_matches_plain_on_card():
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = MLPConfig()
     params = {k: v.cuda() for k, v in _torch(_params(cfg, 7, 0.2)).items()}
-    for n in (1, 5, 511, 513, 4096):
+    packed = fused_mlp.pack_params(params, port_cfg(cfg))
+    plain_pack = fused_mlp.pack_params_plain(params, port_cfg(cfg))
+    assert torch.equal(packed.buffer, plain_pack.buffer.cuda())
+    for n in (1, 5, 63, 65, 127, 129, 511, 513, 4096):
         x = torch.randn((n, 64), device="cuda")
         out = fused_mlp.apply_kernel(params, x, port_cfg(cfg))
         torch.cuda.synchronize()
         torch.testing.assert_close(
             out, fused_mlp.apply_plain(params, x, port_cfg(cfg)),
             rtol=1e-4, atol=1e-5)
+    x[3, 5], x[64, 0] = float("nan"), float("inf")
+    out = fused_mlp.launch(packed, x, port_cfg(cfg))
+    torch.cuda.synchronize()
+    assert not torch.isfinite(out[[3, 64]]).any()
+    assert torch.isfinite(out[[0, 4, 63, 65]]).all()

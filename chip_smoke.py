@@ -2,8 +2,8 @@
 """Bring-up check of the PyTorch/CUDA port (neuralradiancecaching_tpu_torch)
 on one NVIDIA GPU.
 
-Drives the port's three paths at full model width (6x64 MLP, L=16 T=16384
-F=2 hash table, random weights from a seed) and full scene size (125x85x153
+Drives the port's paths at full model width (6x64 MLP, L=16 T=16384 F=2
+hash table, random weights from a seed) and full scene size (125x85x153
 density grid, fields at (32, 24, 40) voxels):
 
 - config 4 with the collision sampler and the fused query MLP, fields at
@@ -19,7 +19,15 @@ density grid, fields at (32, 24, 40) voxels):
   bench's probes, the pose-static env colour and live-ray pack, then per
   frame ``train_only_step`` -> ``nrc.bake`` (bf16 rows) ->
   ``tiled.render_banded`` (the packed walk in 30-row bands, the deferred
-  shade and the bf16 cache query through K1's bf16 mode).
+  shade and the bf16 cache query through K1's bf16 mode);
+- the JAX bench's quality legs on config 5's scene at 256^2: the unbiased
+  oracle (delta sampler, ratio-tracked transmittance, MC in-scatter), the
+  no-cache collision render and the NN render after 400 train steps, as
+  twin accumulations held to the oracle's by ``utils/metrics.py``;
+- configs 3 and 4 as they ship at 800x800 (``pathtrace_config``: the
+  reference sampler with the cache off; ``nrc_online_config`` with only
+  ``fused_inference`` set: the reference sampler's train targets and
+  cached render, K1 f32 on its query).
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
 (csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
@@ -35,24 +43,29 @@ instructions in each built library. Run from the repository root:
 
 Phases: device; both kernels built together, their HGMMA counts; K1 and
 K2 vs plain and vs float64 with timings (K1's launch alone on weights
-packed once, and its whole wrapper; K1's pack kernel against the plain
-pack step; K1's wide-output form; NaN and inf rows); scene bake; cache
-state; frames through ``render_only_step`` and then through
-``frame_step``; 32 ``train_only_step``s whose mse must fall;
-both frames' profiles; K1 on the frame's real feature rows; the port on
-the card vs the port on the CPU at a small size with the same random draws
-(the CPU path is the one the tests hold to the JAX package), for the
-render and for one online frame; then config 5: its scene bake (and each
-field's bake alone, for its peak memory), 3 warm-up train steps, the
-probes and caps, K1's bf16 mode vs plain, 4+1 progressive frames, their
-stages and profile, K1 bf16 on the frame's real rows, and the card vs the
-CPU port on the packed frame at a small size with f32 and with bf16
-fields. Launch counts are reset just before each
-path's timed frames and read just after. Any failure raises and exits
-non-zero. Without a CUDA device, or outside a checkout of the
+packed once, and its whole wrapper, at the config-4-preset query's
+640,000 rows; K1's pack kernel against the plain pack step; K1's
+wide-output form; NaN and inf rows); scene bake; cache state; frames
+through ``render_only_step`` and then through ``frame_step``; 32
+``train_only_step``s whose mse must fall; both frames' profiles; K1 on
+the frame's real feature rows; the port on the card vs the port on the
+CPU at a small size with the same random draws (the CPU path is the one
+the tests hold to the JAX package), for the render and for one online
+frame; then config 5: its scene bake (and each field's bake alone, for
+its peak memory), 3 warm-up train steps, the probes and caps, K1's bf16
+mode vs plain, 4+1 progressive frames, their stages and profile, K1 bf16
+on the frame's real rows, the quality legs, and the card vs the CPU port
+on the packed frame at a small size with f32 and with bf16 fields; then
+configs 3 and 4 as they ship: 4+1 frames each, 32 train steps whose mse
+must fall, the stages and a profiled frame of each, K1 f32 on config 4's
+real query rows; and the card vs the CPU port at 32x32 on the oracle's
+render and on one config-4-preset frame. Launch counts are reset just
+before each path's timed frames and read just after. Any failure raises
+and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
 the card's name and power limit, the one before it the kernels' JSON
-record; the last line is {"ok": true, "device": {...}}.
+record (K1 f32's launches are those of the config-4-preset frames); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,6 +124,14 @@ K1_BF16_SIZES = K1_EDGE_SIZES
 # pixels within 1e-3 + 1e-3 |ref|, all within 1e-2 + 1e-2 |ref|, mean
 # 1e-4 relative)
 SMALL_BF16_FRAC_OK = 0.99
+# configs 3 and 4 as they ship (pathtrace_config / nrc_online_config at
+# their 800x800 default; config 4 with only fused_inference set): 4 timed
+# frames after one warm-up, 32 train steps whose mse must fall
+PRESET_SIDE = 800
+# the JAX bench's quality legs (bench.py:596-810): 256^2 ground-truth legs,
+# the oracle twins at 2 x 128 spp, the no-cache collision and the NN twins
+# at 2 x 64 spp, the NN leg after 400 train steps at query cap 0.375
+Q_SIDE, Q_TRAIN_STEPS, Q_GT_SPP, Q_QUERY_CAP = 256, 400, 64, 0.375
 
 
 def log(msg: str) -> None:
@@ -386,10 +407,16 @@ def profile_call(label: str, fn) -> None:
             on_device = e.device_type == torch.autograd.DeviceType.CUDA
             (kernels_ if on_device else ops).append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in kernels_)
+    # host waits on the stream: a blocking copy to the card (a tensor built
+    # from host data) synchronizes it, and the card idles until the host
+    # enqueues again
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     log(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
         f"{100 - 100 * busy / wall_us:.1f}%), "
-        f"{sum(r[1] for r in kernels_)} kernel launches")
+        f"{sum(r[1] for r in kernels_)} kernel launches, {syncs} stream "
+        f"synchronizations")
     for kind, rows in (("op", ops), ("kernel", kernels_)):
         for dev_us, count, key in sorted(rows, reverse=True)[:15]:
             log(f"  {kind} {dev_us / 1e3:8.3f} ms {count:5d}x  {key[:80]}")
@@ -433,11 +460,13 @@ def profile_frame_step(state, scene, cfg, gen) -> None:
 
 
 def to_device(tree, device):
-    """Tensors of a NamedTuple/list tree moved to ``device``."""
+    """Tensors of a NamedTuple/list/tuple tree moved to ``device``."""
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
-    if isinstance(tree, list):
-        return [to_device(x, device) for x in tree]
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(to_device(x, device) for x in tree)
     return type(tree)(*[to_device(x, device) for x in tree])
 
 
@@ -878,15 +907,385 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
         log(f"K1 bf16 vs plain on real rows ({label}): max abs {abs_e:.3e} "
             f"max rel {rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
             f"{plain_f64:.3e}")
-    del scene, state, pack, env_rgb, baked, feats, ev, qp, qd, qw
+    del pack, env_rgb, baked, feats, ev, qp, qd, qw, inv, rgb_p, trans_p
     torch.cuda.empty_cache()
 
-    # -- 8h. the card vs the CPU port on the small packed frame -------------
+    # -- 8h. the bench's quality legs on config 5's scene --------------------
+    legs = quality_legs(dev, scene, cfg, state)
+    del scene, state
+    torch.cuda.empty_cache()
+
+    # -- 8i. the card vs the CPU port on the small packed frame -------------
     for field_dtype in ("float32", "bfloat16"):
         progressive_small_vs_cpu(dev, field_dtype)
 
     return k1_record("fused_mlp_bf16", launches, err, err_f64, k1_times,
-                     flop, nbytes)
+                     flop, nbytes), legs
+
+
+def quality_legs(dev, scene, cfg, state) -> dict:
+    """The JAX bench's ground-truth quality legs (bench.py:596-810) on the
+    card, at its protocol: config 5 with its production settings rendered
+    through ``render_only_step`` at 256^2 on config 5's scene (the bench's
+    scene keeps config 5's camera), the unbiased oracle (delta sampler,
+    ratio-tracked path and env transmittance, MC in-scatter) in twin
+    accumulations of 2 x 128 spp, the shipped no-cache collision render in
+    twins of 2 x 64 spp, and the NN render (query cap 0.375) after
+    Q_TRAIN_STEPS more train steps in twins of 2 x 64 spp; every pair held
+    to the oracle's twins by the port's own utils/metrics.py
+    (noise_subtracted_bias_err: the noise-subtracted relative RMSE, its
+    noise floor and its +-2 sigma interval). Returns the legs."""
+    from neuralradiancecaching_tpu_torch.render import frame
+    from neuralradiancecaching_tpu_torch.utils import metrics
+    r = dataclasses.replace
+    qcfg = r(cfg, camera=r(cfg.camera, aspect=1.0),
+             render=r(cfg.render, width=Q_SIDE, height=Q_SIDE, use_nn=True,
+                      query_cap_fraction=Q_QUERY_CAP))
+    gcfg = r(qcfg, render=r(qcfg.render, use_nn=False))
+    ocfg = r(gcfg, path=r(gcfg.path, sampler="delta",
+                          transmittance_mode="ratio"),
+             env_map=r(gcfg.env_map, in_scatter_mode="mc",
+                       transmittance_mode="ratio"))
+    ncfg = r(gcfg, render=r(gcfg.render, use_nn=True))
+    times: dict[str, float] = {}
+
+    def accum(c, spp, seed, st, tag):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sync()
+        t0 = time.perf_counter()
+        acc = None
+        for _ in range(spp):
+            img = frame.render_only_step(st, scene, gen, c)
+            acc = img if acc is None else acc + img
+        out = (acc / spp).cpu().numpy().astype(np.float64)
+        times[tag] = times.get(tag, 0.0) + time.perf_counter() - t0
+        check(out.shape == (Q_SIDE, Q_SIDE, 3) and bool(np.isfinite(out)
+                                                        .all()),
+              f"quality leg {tag}: image {out.shape} not finite")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    o1 = accum(ocfg, 2 * Q_GT_SPP, 21000, state, "oracle")
+    o2 = accum(ocfg, 2 * Q_GT_SPP, 25000, state, "oracle")
+    peak_oracle = torch.cuda.max_memory_allocated()
+    profile_call("oracle render_only_step (256^2)", lambda:
+                 frame.render_only_step(state, scene, torch.Generator(
+                     device=dev).manual_seed(1), ocfg))
+    g1 = accum(gcfg, Q_GT_SPP, 20000, state, "gt")
+    g2 = accum(gcfg, Q_GT_SPP, 24000, state, "gt")
+    gen = torch.Generator(device=dev).manual_seed(1000)
+    sync()
+    t0 = time.perf_counter()
+    mses = []
+    for _ in range(Q_TRAIN_STEPS):
+        state, mse = frame.train_only_step(state, scene, gen, cfg)
+        mses.append(mse)
+    sync()
+    times["train"] = time.perf_counter() - t0
+    mses = [float(m) for m in mses]
+    check(bool(np.isfinite(mses).all()), "quality-leg train mse not finite")
+    n1 = accum(ncfg, Q_GT_SPP, 20000, state, "nn")
+    n2 = accum(ncfg, Q_GT_SPP, 24000, state, "nn")
+    om = (o1 + o2).mean() / 2
+    gt_b, gt_f, gt_lo, gt_hi = metrics.noise_subtracted_bias_err(g1, g2, o1,
+                                                                 o2)
+    nn_b, nn_f, nn_lo, nn_hi = metrics.noise_subtracted_bias_err(n1, n2, o1,
+                                                                 o2)
+    legs = {
+        "ground_truth_rmse_noise_sub": gt_b, "ground_truth_lo2s": gt_lo,
+        "ground_truth_hi2s": gt_hi, "ground_truth_noise_floor": gt_f,
+        "ground_truth_mean_delta": float((g1 + g2).mean() / 2 - om) / om,
+        "nn_vs_ground_truth_rmse_noise_sub": nn_b, "nn_vs_ground_truth_lo2s":
+        nn_lo, "nn_vs_ground_truth_hi2s": nn_hi,
+        "nn_vs_ground_truth_noise_floor": nn_f,
+        "nn_vs_ground_truth_mean_delta": float((n1 + n2).mean() / 2 - om)
+        / om,
+        "oracle_mean": float(om), "ground_truth_spp": Q_GT_SPP,
+        "oracle_spp": 2 * Q_GT_SPP, "train_steps": Q_TRAIN_STEPS,
+        "size": Q_SIDE, "query_cap_fraction": Q_QUERY_CAP}
+    log(f"quality legs {Q_SIDE}x{Q_SIDE} (bench protocol): " + json.dumps(
+        legs))
+    log(f"  seconds: oracle twins {times['oracle']:.3f} "
+        f"({2 * 2 * Q_GT_SPP} frames, {times['oracle'] * 1e3 / (4 * Q_GT_SPP):.3f}"
+        f" ms/frame), collision twins {times['gt']:.3f}, {Q_TRAIN_STEPS} "
+        f"train steps {times['train']:.3f} ({times['train'] * 1e3 / Q_TRAIN_STEPS:.3f}"
+        f" ms/step, mse first 8 {np.mean(mses[:8]):.5f}, last 8 "
+        f"{np.mean(mses[-8:]):.5f}), NN twins {times['nn']:.3f}; oracle peak "
+        f"memory {peak_oracle / 2**30:.3f} GiB")
+    check(all(np.isfinite(v) for v in legs.values()), "quality legs not "
+          "finite")
+    # a gross check of the two samplers against each other (the cache
+    # leg depends on the training and is only measured)
+    check(om > 0.0 and abs(legs["ground_truth_mean_delta"]) < 0.25,
+          "the collision render's mean strays from the oracle's by more "
+          "than 25%")
+    return legs
+
+
+def preset_config(name: str, small: bool = False):
+    """Configs 3 and 4 as they ship at PRESET_SIDE (config 4 with
+    ``fused_inference`` so K1 f32 lies on its cache query); ``small`` cuts
+    them to the tests' scale (tests/test_torch_reference.py)."""
+    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    r = dataclasses.replace
+    side = 32 if small else PRESET_SIDE
+    if name == "config3":
+        cfg = cfg_mod.pathtrace_config(side, side)
+    else:
+        cfg = cfg_mod.nrc_online_config(side, side)
+        cfg = r(cfg, mlp=r(cfg.mlp, fused_inference=True))
+    if small:
+        cfg = r(cfg, path=r(cfg.path, max_bounces=8),
+                volume=r(cfg.volume, grid_shape=(16, 12, 20),
+                         field_shape=(6, 5, 8)),
+                env_map=r(cfg.env_map, scatter_quad_dirs=(8, 16)),
+                train=r(cfg.train, train_width=16, train_height=16,
+                        target_bounces=16))
+    return cfg
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and the peak-memory mark set to 0."""
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BF16 = matmul.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def timed_frames(fn, n):
+    """fn(i) for i in 0..n (0 a warm-up): the host ms of frames 1..n, each
+    ending in a synchronize, and their outputs; the launch counts and the
+    peak-memory mark are reset after the warm-up."""
+    fn(0)
+    sync()
+    reset_counts()
+    ms, outs = [], []
+    for i in range(1, n + 1):
+        sync()
+        t0 = time.perf_counter()
+        outs.append(fn(i))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, outs
+
+
+def preset_frames(dev, dens, env, params_he):
+    """Configs 3 and 4 as they ship, at 800x800 on the card (phases 9-10):
+    config 3's render_only_step (reference sampler, cache off: no bake, no
+    query), config 4's frame_step (the reference vertex walk and 64-step
+    target walks, the train step, the two-phase march, the compacted
+    shade, the K1 f32 query), 32 train_only_steps whose mse must fall, the
+    stages of both frames, one profiled frame each, and K1 f32 held to
+    its plain version on config 4's real query rows. Returns (K1 f32's
+    launches over the 4 timed config-4 frames, its max abs error vs plain
+    and vs float64 there)."""
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
+                                                        targets)
+    from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
+    c3, c4 = preset_config("config3"), preset_config("config4")
+    check(c3.path.sampler == c4.path.sampler == "reference"
+          and not c3.render.use_nn and c4.render.use_nn,
+          "the presets no longer ship the reference sampler")
+    # the presets share their volume and env settings, so one scene serves
+    # both
+    check(c3.volume == c4.volume and c3.env_map == c4.env_map,
+          "configs 3 and 4 differ in their scene")
+    timings: dict[str, float] = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene = scn.make_scene(c3, dens, env, timings=timings, device=dev)
+    sync()
+    log(f"configs 3/4 scene bake {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    n_pix = PRESET_SIDE * PRESET_SIDE
+    state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), c4,
+                           device=dev)
+
+    # -- 9. config 3: the cache-off reference render --------------------------
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ms, imgs = timed_frames(
+        lambda i: frame.render_only_step(state, scene, gen, c3), N_FRAMES)
+    peak = torch.cuda.max_memory_allocated()
+    means = [float(img.mean()) for img in imgs]
+    check(all(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
+              and bool(torch.isfinite(img).all()) for img in imgs),
+          "config 3 frame not finite")
+    check(all(1e-3 < m < 1e3 for m in means), f"config 3 means {means}")
+    check(fused_mlp.LAUNCHES == 0, "config 3 (cache off) launched K1")
+    med = statistics.median(ms)
+    log(f"config 3 render_only_step {PRESET_SIDE}x{PRESET_SIDE} (reference "
+        f"sampler, {c3.path.max_bounces} slots, dense shade, cache off): ms "
+        f"{[round(t, 3) for t in ms]}, median {med:.3f} ms, "
+        f"{n_pix / med / 1e3:.3f} Mrays/s, means "
+        f"{[round(m, 5) for m in means]}, K1 launches {fused_mlp.LAUNCHES}, "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    ro, rd = camera.pixel_rays(scene.camera, PRESET_SIDE, PRESET_SIDE)
+    stage("config 3 trace_path (march + dense shade)", lambda:
+          pathtrace.trace_path(scene, c3, ro, rd, gen, use_nn=False))
+    stage("config 3 whole render_only_step", lambda: frame.render_only_step(
+        state, scene, gen, c3))
+    profile_call("config 3 render_only_step", lambda: frame.render_only_step(
+        state, scene, gen, c3))
+    del imgs
+
+    # -- 10. config 4: the online frame with the reference sampler ------------
+    gen = torch.Generator(device=dev).manual_seed(4)
+    halves: list[dict] = []
+
+    def online(i):
+        nonlocal state
+        h: dict[str, float] = {}
+        state, out = frame.frame_step(state, scene, gen, c4, timings=h)
+        if i:
+            halves.append(h)
+        return out
+
+    ms, outs = timed_frames(online, N_FRAMES)
+    launches = fused_mlp.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    mses = [float(o.mse) for o in outs]
+    check(all(bool(torch.isfinite(o.image).all()) for o in outs)
+          and all(np.isfinite(mses)), "config 4 frame not finite")
+    check(launches >= N_FRAMES, f"K1 f32 launched {launches} times in "
+          f"{N_FRAMES} config-4 frames")
+    train = [h["train"] * 1e3 for h in halves]
+    render = [h["render"] * 1e3 for h in halves]
+    log(f"config 4 frame_step {PRESET_SIDE}x{PRESET_SIDE} (reference "
+        f"sampler, train {c4.train.train_width}x{c4.train.train_height} x "
+        f"{c4.train.target_samples} target walks of "
+        f"{c4.train.target_bounces} steps): ms {[round(t, 3) for t in ms]}, "
+        f"median {statistics.median(ms):.3f}; train half "
+        f"{[round(t, 3) for t in train]}, median "
+        f"{statistics.median(train):.3f}; render half "
+        f"{[round(t, 3) for t in render]}, median "
+        f"{statistics.median(render):.3f} ms, "
+        f"{n_pix / statistics.median(render) / 1e3:.3f} Mrays/s; mse "
+        f"{[round(m, 5) for m in mses]}; image means "
+        f"{[round(float(o.image.mean()), 5) for o in outs]}; K1 f32 launches "
+        f"{launches}, K1 bf16 {fused_mlp.LAUNCHES_BF16}, K2 "
+        f"{matmul.LAUNCHES}; peak memory {peak / 2**30:.3f} GiB")
+    del outs
+
+    steps = []
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, mse = frame.train_only_step(state, scene, gen, c4)
+        steps.append(mse)
+    sync()
+    per_step = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    steps = [float(m) for m in steps]
+    first, last = np.mean(steps[:8]), np.mean(steps[-8:])
+    log(f"config 4: {TRAIN_STEPS} train_only_steps {per_step:.3f} ms/step, "
+        f"mse {[round(m, 4) for m in steps]}, mean of the first 8 "
+        f"{first:.5f}, of the last 8 {last:.5f}")
+    check(bool(np.isfinite(steps).all()), "config 4 train mse not finite")
+    check(last < first, f"config 4's mse did not fall: {first} -> {last}")
+
+    # the stages of both halves, each called alone
+    u = stage("config 4 draw_train_uniforms", lambda:
+              targets.draw_train_uniforms(c4, gen, dev))
+    tro, trd = targets.train_ray_pool(scene, c4, u.jitter)
+    pos, d = stage("config 4 choose_train_vertices (vertex walk)", lambda:
+                   targets.choose_train_vertices(scene, c4, tro, trd,
+                                                 u.vertex[0]))
+    s_count = c4.train.target_samples
+    stage(f"config 4 trace_target_paths ({s_count * pos.shape[0]} walks of "
+          f"{c4.train.target_bounces} steps, dense shade)", lambda:
+          targets.trace_target_paths(scene, c4, pos.repeat(s_count, 1),
+                                     d.repeat(s_count, 1), u.target[0]))
+    batch = targets.generate_train_batch_for_rays(scene, c4, tro, trd, u)
+    grads, _ = stage("config 4 compute_grads", lambda: nrc.compute_grads(
+        state, batch.pos, batch.dir, batch.target, c4))
+    stage("config 4 apply_grads", lambda: nrc.apply_grads(state, grads, c4))
+    baked = stage("config 4 nrc.bake", lambda: nrc.bake(state, c4))
+    res = stage("config 4 trace_path (two-phase march + compacted shade)",
+                lambda: pathtrace.trace_path(scene, c4, ro, rd, gen,
+                                             use_nn=True))
+    feats = stage("config 4 encode_baked", lambda: nrc.encode_baked(
+        state, baked, res.query_pos, res.query_dir, c4))
+    stage("config 4 query_mlp (K1 f32)", lambda: nrc.query_mlp(state, feats,
+                                                                c4))
+    err = err_f64 = 0.0
+    for label, params in (("state weights", state.mlp_params),
+                          ("O(1) weights", params_he)):
+        abs_e, rel_e, f64_e, plain_f64 = compare_k1(params, feats, c4.mlp)
+        err, err_f64 = max(err, abs_e), max(err_f64, f64_e)
+        log(f"K1 vs plain on config 4's real rows {tuple(feats.shape)} "
+            f"({label}): max abs {abs_e:.3e} max rel {rel_e:.3e}; vs "
+            f"float64: kernel {f64_e:.3e}, plain {plain_f64:.3e}")
+    log(f"  config 4 render: {float((res.query_weight > 0).float().mean()):.4f}"
+        f" of the rays query the cache")
+    profile_call("config 4 frame_step", lambda: frame.frame_step(
+        state, scene, gen, c4))
+    return launches, err, err_f64
+
+
+def presets_small_vs_cpu(dev) -> None:
+    """The card vs the CPU port at 32x32 with the same draws (drawn on the
+    CPU): the oracle's render (delta, ratio, MC, 32 bounces on the tests'
+    grid) and one frame_step of config 4 as it ships (tests' scale)."""
+    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import frame, pathtrace, targets
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    r = dataclasses.replace
+    c5 = cfg_mod.progressive_1080p_config()
+    oracle = r(c5, camera=r(c5.camera, aspect=1.0),
+               render=r(c5.render, width=32, height=32, use_nn=False),
+               path=r(c5.path, sampler="delta", transmittance_mode="ratio"),
+               env_map=r(c5.env_map, in_scatter_mode="mc",
+                         transmittance_mode="ratio"),
+               volume=r(c5.volume, field_dtype="float32",
+                        grid_shape=(16, 12, 20), field_shape=(6, 5, 8)))
+    c4 = preset_config("config4", small=True)
+    rng = np.random.default_rng(0)
+    dens = rng.random(c4.volume.grid_shape, dtype=np.float32) * 0.5
+    env = assets.synthesize_sky(32, 64)
+    cpu_gen = torch.Generator().manual_seed(11)
+    u_o = pathtrace.draw_path_uniforms(oracle, 32 * 32, False, cpu_gen)
+    u_t = targets.draw_train_uniforms(c4, cpu_gen, "cpu")
+    u_r = pathtrace.draw_path_uniforms(c4, 32 * 32, True, cpu_gen)
+    state = nrc.init_state(torch.Generator().manual_seed(2), c4,
+                           device="cpu")
+    state = dataclasses.replace(state, mlp_params=he_params(
+        c4.mlp, torch.Generator().manual_seed(3), "cpu"))
+    out = []
+    for d in ("cpu", dev):
+        so = scn.make_scene(oracle, dens, env, device=d)
+        img_o = frame.render_only_step(state_to(state, d), so, None, oracle,
+                                       uniforms=to_device(u_o, d))
+        s4 = scn.make_scene(c4, dens, env, device=d)
+        st, o4 = frame.frame_step(state_to(state, d), s4, None, c4,
+                                  train_uniforms=to_device(u_t, d),
+                                  uniforms=to_device(u_r, d))
+        out.append((img_o.cpu().numpy(), o4.image.cpu().numpy(),
+                    float(o4.mse), state_to(st, "cpu")))
+    sync()
+    (o_c, f_c, mse_c, st_c), (o_g, f_g, mse_g, st_g) = out
+    for label, got, ref in (("oracle render", o_g, o_c),
+                            ("config-4 frame_step", f_g, f_c)):
+        ok = np.all(np.abs(got - ref) <= 1e-4 + 1e-3 * np.abs(ref), axis=-1)
+        rel = abs(got.mean() - ref.mean()) / abs(ref.mean())
+        log(f"card vs CPU port, {label} 32x32: {ok.mean():.4f} of pixels "
+            f"within 1e-4 + 1e-3|ref|, mean rel diff {rel:.3e}, max abs diff "
+            f"{float(np.abs(got - ref).max()):.3e}")
+        check(bool(np.isfinite(got).all()) and ok.mean() >= SMALL_FRAC_OK
+              and rel <= SMALL_REL_MEAN,
+              f"the card's {label} disagrees with the CPU port")
+    mse_rel = abs(mse_g - mse_c) / abs(mse_c)
+    h_diff = (st_g.hash_table - st_c.hash_table).abs()
+    h_frac = float((h_diff <= SMALL_PARAM_TOL).float().mean())
+    log(f"  config-4 frame: mse {mse_g:.6f} vs {mse_c:.6f} (rel "
+        f"{mse_rel:.3e}); hash entries within {SMALL_PARAM_TOL:g}: "
+        f"{h_frac:.6f}")
+    check(mse_rel <= SMALL_MSE_REL, "the card's config-4 train mse disagrees")
+    check(h_frac >= SMALL_HASH_FRAC
+          and float(h_diff.max()) <= 2 * c4.mrhe.learning_rate * 1.0001,
+          "the card's config-4 hash-table step disagrees")
 
 
 def main() -> int:
@@ -939,7 +1338,7 @@ def main() -> int:
     # -- 3. K1 vs plain on random rows, and timings -----------------------
     params_he = he_params(cfg.mlp, gen, dev)
     k1_err = k1_err_f64 = 0.0
-    for n in K1_SIZES:
+    for n in K1_SIZES + (PRESET_SIDE ** 2,):
         x = torch.randn((n, cfg.mlp.in_features), generator=gen, device=dev)
         abs_e, rel_e, f64_e, plain_f64 = compare_k1(params_he, x, cfg.mlp)
         k1_err, k1_err_f64 = max(k1_err, abs_e), max(k1_err_f64, f64_e)
@@ -950,11 +1349,12 @@ def main() -> int:
             device=dev).manual_seed(0), cfg).mlp_params):
         check_k1_pack(params, cfg.mlp, False, dev)
     check_k1_wide(dev)
-    x_big = torch.randn((WIDTH * HEIGHT, cfg.mlp.in_features),
+    # timed at the row count of the config-4-preset frame's query (800^2)
+    x_big = torch.randn((PRESET_SIDE ** 2, cfg.mlp.in_features),
                         generator=gen, device=dev)
     k1_times = time_k1(params_he, x_big, cfg.mlp)
-    k1_flop, k1_bytes = k1_work(cfg.mlp, WIDTH * HEIGHT, 4 * 64)
-    log_k1_times("K1", WIDTH * HEIGHT, k1_times, k1_flop, k1_bytes)
+    k1_flop, k1_bytes = k1_work(cfg.mlp, PRESET_SIDE ** 2, 4 * 64)
+    log_k1_times("K1", PRESET_SIDE ** 2, k1_times, k1_flop, k1_bytes)
 
     # -- 3b. K2 vs plain and float64: the JAX test's shapes, two ragged
     #    ones, 4096^3 ---------------------------------------------------------
@@ -1202,11 +1602,22 @@ def main() -> int:
     # -- 8. config 5's progressive 1080p frame ------------------------------
     del scene, train_scene, state, res, feats, x_big, img, out
     torch.cuda.empty_cache()
-    k1_bf16 = progressive_frame(dev, dens, env, params_he)
+    k1_bf16, legs = progressive_frame(dev, dens, env, params_he)
+
+    # -- 9-10. configs 3 and 4 as they ship --------------------------------
+    torch.cuda.empty_cache()
+    launches_preset, err, err_f64 = preset_frames(dev, dens, env, params_he)
+    k1_err, k1_err_f64 = max(k1_err, err), max(k1_err_f64, err_f64)
+    log(f"K1 f32 launches: {launches_online} on the 4 collision online "
+        f"frames, {launches_preset} on the 4 config-4-preset frames")
+
+    # -- 11. the card vs the CPU port: the oracle and config 4's frame -----
+    presets_small_vs_cpu(dev)
+    log("quality: " + json.dumps(legs))
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        k1_record("fused_mlp", launches_online, k1_err, k1_err_f64, k1_times,
+        k1_record("fused_mlp", launches_preset, k1_err, k1_err_f64, k1_times,
                   k1_flop, k1_bytes),
         k1_bf16,
         {"name": "matmul", "route": "cuda",

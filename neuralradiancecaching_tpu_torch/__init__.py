@@ -11,12 +11,14 @@ constructors place tensors on the card unless the caller names another
 device; randomness comes from explicit ``torch.Generator``s or from
 caller-supplied uniforms.
 
-Ported so far: config 4's online frame with the collision sampler
-(``render.frame.frame_step``: the train batch, the train step with guarded
-Adam, and the cached render), whose cache query runs the hand-written CUDA
-kernel ``csrc/fused_mlp.cu``; and the generic fp32 matrix product
-``csrc/matmul.cu`` (``ops.matmul``). Both are built at first use by
-:mod:`.kernels`.
+Ported so far: the online frame (``render.frame.frame_step``: the train
+batch, the train step with guarded Adam, and the cached render) with the
+reference, collision and delta samplers and every light mode but the
+premultiplied one, the unbiased ground-truth oracle, and config 5's banded
+progressive frame (``render.tiled``); the cache query runs the
+hand-written CUDA kernel ``csrc/fused_mlp.cu``, and the generic fp32
+matrix product is ``csrc/matmul.cu`` (``ops.matmul``). Both are built at
+first use by :mod:`.kernels`.
 """
 
 __version__ = "0.2.0"

@@ -3,8 +3,8 @@
 Counterpart of ``neuralradiancecaching_tpu/ops/envmap.py`` (reference
 HdrEnvMap.cpp, read_file.cpp:123-206, nrc-forward.frag:690-749). Lookups use
 the corner table: one 12-float row per bilinear fetch, with the u
-wraparound and the v clamp baked in. Importance sampling is not ported yet;
-the inverse CDFs are built so the env state matches the JAX one.
+wraparound and the v clamp baked in. Importance sampling inverts the two
+CDF tables with uniforms from the caller.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-from neuralradiancecaching_tpu_torch.config import EnvMapConfig
+from neuralradiancecaching_tpu_torch.config import EnvMapConfig, QuirkFlags
 from neuralradiancecaching_tpu_torch.ops import scan
 
 
@@ -111,3 +111,39 @@ def sample_direct(env: EnvMap, direction: torch.Tensor,
     looking along `direction`, scaled by the chosen strength."""
     rgb = bilinear_lookup(env, dir_to_equirect_uv(direction))
     return rgb * (env.hpm_strength if hpm else env.direct_strength)
+
+
+def importance_sample(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
+                      quirks: QuirkFlags):
+    """Inverse-CDF draw of a direction and its radiance (the reference's
+    dead-code branch nrc-forward.frag:728-744, for real): thetaNorm =
+    invCdfY(u1), phiNorm = invCdfX(u2 | thetaNorm), nearest texels; the
+    direction from the spherical angles (``raw_envmap_dir``: the reference's
+    non-normalized sin(theta pi) (cos, 1, sin) vector). u1/u2: (...,) --
+    the JAX draw splits its key into one uniform each.
+
+    Returns (dir (..., 3), radiance (..., 3)); the radiance is the raw env
+    texel at (phiNorm, thetaNorm), not scaled by a strength.
+    """
+    h, w = env.image.shape[0], env.image.shape[1]
+    theta_norm = env.inv_cdf_y[torch.clamp((u1 * h).to(torch.int64), 0,
+                                           h - 1)]
+    row = torch.clamp((theta_norm * h).to(torch.int64), 0, h - 1)
+    col = torch.clamp((u2 * w).to(torch.int64), 0, w - 1)
+    phi_norm = env.inv_cdf_x[row, col]
+    if quirks.raw_envmap_dir:
+        st = torch.sin(theta_norm * math.pi)
+        direction = torch.stack([st * torch.cos(phi_norm * 2.0 * math.pi), st,
+                                 st * torch.sin(phi_norm * 2.0 * math.pi)],
+                                dim=-1)
+    else:
+        # v = theta_norm is the image row: y = sin((v - 0.5) pi); u =
+        # phi_norm is the azimuth 2 pi (u - 0.5)
+        y = torch.sin((theta_norm - 0.5) * math.pi)
+        r = torch.sqrt(torch.clamp(1.0 - y * y, min=0.0))
+        az = (phi_norm - 0.5) * (2.0 * math.pi)
+        direction = torch.stack([r * torch.cos(az), y, r * torch.sin(az)],
+                                dim=-1)
+    radiance = bilinear_lookup(env, torch.stack([phi_norm, theta_norm],
+                                                dim=-1))
+    return direction, radiance

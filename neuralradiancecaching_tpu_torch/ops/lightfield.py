@@ -167,6 +167,15 @@ def query_tau_field(field: torch.Tensor, pos: torch.Tensor, d: torch.Tensor,
     return top + (bot - top) * wt
 
 
+def query_transmittance_field(field: torch.Tensor, pos: torch.Tensor,
+                              d: torch.Tensor, vol: VolumeConfig,
+                              field_shape: Tuple[int, int, int] | None = None
+                              ) -> torch.Tensor:
+    """T(pos -> exit along d) = exp(-tau): the 'field' exit transmittance of
+    the MC env estimator."""
+    return torch.exp(-query_tau_field(field, pos, d, vol, field_shape))
+
+
 def segment_transmittance_field(field: torch.Tensor, a: torch.Tensor,
                                 b: torch.Tensor, vol: VolumeConfig,
                                 field_shape: Tuple[int, int, int] | None = None

@@ -3,9 +3,12 @@
 Counterpart of ``neuralradiancecaching_tpu/ops/volume.py``: analytic slab
 ray/AABB intersection, the corner table (each base cell's 8 trilinear
 corners in one row, clamp-to-border black), trilinear density fetches from
-it, and the fixed-step transmittance quadrature of the reference
-(GetTransmittance, nrc-train.comp:1032-1053). Shape-polymorphic over
-leading batch dimensions; no data-dependent control flow.
+it, the fixed-step transmittance quadrature of the reference
+(GetTransmittance, nrc-train.comp:1032-1053), the unbiased ratio-tracking
+transmittance of the ground-truth oracle (its uniforms from the caller) and
+the dilated coarse majorant grid of local-majorant delta tracking.
+Shape-polymorphic over leading batch dimensions; no data-dependent control
+flow.
 """
 
 from __future__ import annotations
@@ -13,8 +16,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from neuralradiancecaching_tpu_torch.config import VolumeConfig
+from neuralradiancecaching_tpu_torch.ops import scan
 
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
@@ -127,3 +132,50 @@ def transmittance(field: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
 def quantize_8bit(grid: torch.Tensor) -> torch.Tensor:
     """Quirk #7 (Texture3D.cpp:25-40): density quantized to 8-bit UNORM."""
     return torch.round(torch.clamp(grid, 0.0, 1.0) * 255.0) / 255.0
+
+
+def transmittance_ratio(field: torch.Tensor, start: torch.Tensor,
+                        end: torch.Tensor, uniforms: torch.Tensor,
+                        sigma_maj: torch.Tensor | float, cfg: VolumeConfig
+                        ) -> torch.Tensor:
+    """UNBIASED segment transmittance by ratio tracking, batched:
+    T = prod_k (1 - sigma(x_k) / sigma_maj) over Woodcock candidates at
+    distances cumsum(Exp(sigma_maj)) <= |end - start| (factors past the
+    segment end, or past an exhausted budget, are 1). The candidates do not
+    depend on the density, so the estimate is one batched gather and a
+    masked product. 1 for zero-length segments.
+
+    start/end: (..., 3) -> (...,). uniforms: (steps, ...) -- the JAX draw
+    ``uniform(key, (steps,) + shape)``. Holds (steps, ..., 3) points at
+    once: callers chunk large batches.
+    """
+    seg = end - start
+    length = torch.linalg.vector_norm(seg, dim=-1)
+    dirn = seg / torch.clamp(length, min=1e-12)[..., None]
+    t_cand = scan.cumsum(-torch.log1p(-uniforms), dim=0) / sigma_maj
+    x = start[None] + (torch.minimum(t_cand, length[None])[..., None]
+                       * dirn[None])
+    rho = density_at(field, x, cfg)
+    f = torch.where(t_cand <= length[None], 1.0 - rho / sigma_maj, 1.0)
+    return torch.where(length > 0.0, torch.prod(f, dim=0), 1.0)
+
+
+def majorant_grid(grid: torch.Tensor, cells: Tuple[int, int, int]
+                  ) -> torch.Tensor:
+    """Dilated coarse max-density grid (cx, cy, cz) for local-majorant delta
+    tracking: a 3^3 max dilation of the fine grid, a zero-padded block max
+    into cells of ceil(N / c) voxels, and a 3^3 max dilation of the coarse
+    grid, so maj[cell(q)] bounds the trilinear density anywhere within one
+    cell edge of q. Raw density (multiply by density_factor at use). The
+    JAX version's windows pad with 0; density is >= 0 and every window
+    holds its centre, so max_pool3d's padding gives the same grid."""
+    def dilate(g):
+        return F.max_pool3d(g[None, None], 3, stride=1, padding=1)[0, 0]
+
+    g = dilate(grid)
+    f = [-(-n // c) for n, c in zip(grid.shape, cells)]
+    g = F.pad(g, (0, cells[2] * f[2] - grid.shape[2],
+                  0, cells[1] * f[1] - grid.shape[1],
+                  0, cells[0] * f[0] - grid.shape[0]))
+    g = g.reshape(cells[0], f[0], cells[1], f[1], cells[2], f[2])
+    return dilate(g.amax(dim=(1, 3, 5)))

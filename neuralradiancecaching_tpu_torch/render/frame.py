@@ -46,7 +46,7 @@ def frame_step(state: nrc.NRCState, scene: Scene,
                generator: Optional[torch.Generator], cfg: NRCConfig,
                train: bool = True,
                train_uniforms: Optional[targets.TrainUniforms] = None,
-               uniforms: Optional[torch.Tensor] = None,
+               uniforms=None,
                timings: dict[str, float] | None = None
                ) -> Tuple[nrc.NRCState, FrameOutput]:
     """One frame: (optionally) one online training pass, then the render
@@ -76,14 +76,17 @@ def frame_step(state: nrc.NRCState, scene: Scene,
 
 def render_only_step(state: nrc.NRCState, scene: Scene,
                      generator: Optional[torch.Generator], cfg: NRCConfig,
-                     uniforms: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     uniforms=None) -> torch.Tensor:
     """Render one frame from the current cache: (H, W, 3) linear radiance.
-    ``uniforms`` replaces the walk's draw from ``generator``
-    (render/pathtrace.py)."""
+    Without the cache (``render.use_nn`` off) neither the bake nor the
+    query runs -- the JAX program drops them as dead code. ``uniforms``
+    replaces the walk's draws from ``generator`` (what
+    ``pathtrace.render_image`` takes)."""
     ro, rd = pixel_rays(scene.camera, cfg.render.width, cfg.render.height)
-    baked = nrc.bake(state, cfg)
-    query_fn = nrc.make_baked_query_fn(state, baked, cfg)
+    query_fn = None
+    if cfg.render.use_nn:
+        baked = nrc.bake(state, cfg)
+        query_fn = nrc.make_baked_query_fn(state, baked, cfg)
     rgb, _ = pathtrace.render_image(scene, cfg, ro, rd, generator,
                                     query_fn=query_fn, uniforms=uniforms)
     return rgb.reshape(cfg.render.height, cfg.render.width, 3)

@@ -22,8 +22,9 @@ env colour (:func:`frame_env_color`), the exact entry optical depth
 which carries the packed entry tau) are computed once per camera pose and
 passed to :func:`render_banded`; the oct bake once per cache state.
 
-Not ported: ``render_tiled`` (the host band loop), spp > 1 and the
-cache-off banded render (both raise).
+Not ported: ``render_tiled`` (the host band loop), spp > 1, the
+cache-off banded render and the banded render of the reference and delta
+samplers (all raise).
 """
 
 from __future__ import annotations
@@ -247,6 +248,9 @@ def render_banded(state: nrc.NRCState, scene: Scene,
     if not cfg.render.use_nn:
         raise NotImplementedError("the cache-off banded render is not "
                                   "ported yet")
+    if cfg.path.sampler != "collision":
+        raise NotImplementedError(f"the banded render of sampler="
+                                  f"{cfg.path.sampler!r} is not ported")
     if cfg.render.spp != 1:
         raise NotImplementedError("spp > 1 is not ported yet")
     if baked is None:

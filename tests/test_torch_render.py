@@ -208,13 +208,17 @@ def test_render_on_cpu_takes_plain_mlp_and_no_launch(setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"path": {"sampler": "reference"}},
-    {"path": {"sampler": "delta"}},
-    {"render": {"spp": 2}},
-    {"render": {"query_cap_fraction": 0.5}},
+    {"path": {"sampler": "reference", "march_entry_fraction": 0.25}},
+    {"env_map": {"in_scatter_mode": "mc",
+                 "transmittance_mode": "premultiplied"}},
+    {"path": {"coll_shade_cap": 0.0}},
+    {"path": {"sampler": "delta", "coll_shade_cap": 0.0}},
     {"path": {"coll_phase1_steps": 2}},
 ])
 def test_unported_modes_raise(setup, change):
+    """What the port leaves out raises: the reference march's entry kill,
+    the premultiplied env mode, the dense per-slot shade of the collision
+    and delta walks, the NN-mode collision march split."""
     cfg, _, ts, _, tstate = setup
     for section, kw in change.items():
         cfg = R(cfg, **{section: R(getattr(cfg, section), **kw)})
@@ -226,7 +230,9 @@ def test_unported_modes_raise(setup, change):
 def test_port_never_imports_jax():
     """The port's online frame (train + render), the progressive frame of
     config 5 with bf16 fields and the bf16 query (train, bake, the
-    hoists and ``render_banded``), its config and its assets load no
+    hoists and ``render_banded``), the unbiased oracle's render (delta,
+    ratio tracking, MC in-scatter) and a reference-sampler online frame,
+    its config and its assets load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -274,6 +280,24 @@ def test_port_never_imports_jax():
             st, sc, g, c5, 4, env_rgb=tiled.frame_env_color(sc, c5),
             baked=nrc.bake(st, c5), pack=tiled.frame_live_pack(sc, c5, 4))
         assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
+        oracle = R(cfg, render=R(cfg.render, use_nn=False),
+                   path=R(cfg.path, sampler="delta", max_bounces=8,
+                          transmittance_mode="ratio",
+                          delta_majorant_cells=(4, 3, 5)),
+                   env_map=R(cfg.env_map, in_scatter_mode="mc",
+                             transmittance_mode="ratio", n_samples=2))
+        sc = scene.make_scene(oracle, dens, assets.synthesize_sky(16, 32),
+                              device="cpu")
+        img = frame.render_only_step(st, sc, g, oracle)
+        assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
+        ref = R(cfg, path=R(cfg.path, sampler="reference", max_bounces=8),
+                mlp=R(cfg.mlp, fused_inference=True))
+        sc = scene.make_scene(ref, dens, assets.synthesize_sky(16, 32),
+                              device="cpu")
+        st, out = frame.frame_step(nrc.init_state(g, ref, device="cpu"), sc,
+                                   g, ref)
+        assert bool(torch.isfinite(out.image).all())
+        assert bool(torch.isfinite(out.mse))
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

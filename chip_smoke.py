@@ -27,7 +27,11 @@ density grid, fields at (32, 24, 40) voxels):
 - configs 3 and 4 as they ship at 800x800 (``pathtrace_config``: the
   reference sampler with the cache off; ``nrc_online_config`` with only
   ``fused_inference`` set: the reference sampler's train targets and
-  cached render, K1 f32 on its query).
+  cached render, K1 f32 on its query);
+- the port's CLI (``python -m neuralradiancecaching_tpu_torch.cli``) as a
+  user runs it, each subcommand in its own process at its default size:
+  ``pathtrace`` and ``nrc-online`` at 800x800 through the banded render
+  in 32-row bands, ``progressive`` at 1920x1080.
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
 (csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
@@ -57,10 +61,20 @@ mode vs plain, 4+1 progressive frames, their stages and profile, K1 bf16
 on the frame's real rows, the quality legs, and the card vs the CPU port
 on the packed frame at a small size with f32 and with bf16 fields; then
 configs 3 and 4 as they ship: 4+1 frames each, 32 train steps whose mse
-must fall, the stages and a profiled frame of each, K1 f32 on config 4's
-real query rows; and the card vs the CPU port at 32x32 on the oracle's
-render and on one config-4-preset frame. Launch counts are reset just
-before each path's timed frames and read just after. Any failure raises
+must fall, the stages and a profiled frame of each, each render again in
+the CLI's 32-row bands (2+1 warm frames and a profile), K1 f32 on config
+4's real query rows; and the card vs the CPU port at 32x32 on the oracle's
+render and on one config-4-preset frame; then the port's CLI as a user
+runs it, each run its own process at the subcommand's default size
+(``pathtrace`` at 800x800 in 32-row bands, also with the delta sampler at
+spp 2; ``nrc-online`` for 4 frames with a checkpoint, then resumed from it
+for one; ``progressive`` for 4 frames at 1920x1080), each image read back
+finite, the frames' times and peak memory logged; and the card vs the CPU
+port on every branch of ``render_banded`` the CLI reaches (the cache off
+with each sampler, the cached reference sampler, the delta sampler's
+deferred shade packed and unpacked and its in-band shade, spp 2) at
+32x32. Launch counts are
+reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
 the card's name and power limit, the one before it the kernels' JSON
@@ -128,10 +142,26 @@ SMALL_BF16_FRAC_OK = 0.99
 # their 800x800 default; config 4 with only fused_inference set): 4 timed
 # frames after one warm-up, 32 train steps whose mse must fall
 PRESET_SIDE = 800
+# the same presets' frames in the CLI's bands, warm: timed frames after a
+# warm-up (each a few seconds: a band issues about a whole frame's launches)
+BANDED_FRAMES = 2
 # the JAX bench's quality legs (bench.py:596-810): 256^2 ground-truth legs,
 # the oracle twins at 2 x 128 spp, the no-cache collision and the NN twins
 # at 2 x 64 spp, the NN leg after 400 train steps at query cap 0.375
 Q_SIDE, Q_TRAIN_STEPS, Q_GT_SPP, Q_QUERY_CAP = 256, 400, 64, 0.375
+# the CLI's runs (each its own process; a run's time limit) and the
+# branches of render_banded held card against CPU: (sampler, cache on,
+# spp, packed, light transmittance mode)
+CLI_TIMEOUT = 600
+BANDED_CASES = (("reference", False, 2, False, "field"),
+                ("collision", False, 1, False, "field"),
+                ("delta", False, 2, False, "field"),
+                ("reference", True, 2, False, "field"),
+                ("delta", True, 1, False, "field"),
+                ("delta", True, 1, True, "field"),
+                ("delta", True, 1, False, "quadrature"),
+                ("collision", True, 2, False, "field"),
+                ("collision", True, 2, True, "field"))
 
 
 def log(msg: str) -> None:
@@ -694,12 +724,11 @@ def progressive_small_vs_cpu(dev, field_dtype: str) -> None:
                                         to_device(t_u, d))
         pack = tiled.frame_live_pack(sc, cfg, band)
         if u is None:
-            u = torch.rand(tiled.band_uniform_shape(cfg, pack.ro_p.shape[0],
-                                                    band * w),
-                           generator=torch.Generator().manual_seed(4))
+            u = draw_band_uniforms(cfg, pack.ro_p.shape[0], band * w,
+                                   torch.Generator().manual_seed(4))
         img = tiled.render_banded(
             st, sc, None, cfg, band, env_rgb=tiled.frame_env_color(sc, cfg),
-            baked=nrc.bake(st, cfg), pack=pack, uniforms=u.to(d))
+            baked=nrc.bake(st, cfg), pack=pack, uniforms=to_device(u, d))
         out.append((img.cpu().numpy().reshape(-1, 3), float(mse),
                     int(pack.val.sum())))
     sync()
@@ -1068,20 +1097,54 @@ def timed_frames(fn, n):
     return ms, outs
 
 
+def stage_peak(fn) -> int:
+    """The peak device memory of one call of fn (bytes)."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync()
+    return torch.cuda.max_memory_allocated()
+
+
+def banded_frames(label: str, fn, band: int, unbanded_ms: float,
+                  unbanded_peak: int) -> None:
+    """A preset's 800x800 frame in the CLI's bands, warm (phases 9b, 10b):
+    BANDED_FRAMES timed frames after a warm-up, their peak memory, both
+    beside the unbanded frame's in this run, and one profiled frame (device
+    busy and idle share, launches)."""
+    ms, imgs = timed_frames(lambda i: fn(), BANDED_FRAMES)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
+              and bool(torch.isfinite(img).all()) for img in imgs),
+          f"{label} banded frame not finite")
+    med = statistics.median(ms)
+    log(f"{label} render_banded {PRESET_SIDE}x{PRESET_SIDE} in "
+        f"{PRESET_SIDE // band} bands of {band} rows (warm): ms "
+        f"{[round(t, 3) for t in ms]}, median {med:.3f} ms, "
+        f"{med / unbanded_ms:.2f}x the unbanded {unbanded_ms:.3f} ms; peak "
+        f"memory {peak / 2**30:.3f} GiB against the unbanded "
+        f"{unbanded_peak / 2**30:.3f} GiB")
+    del imgs
+    profile_call(f"{label} render_banded ({band}-row bands)", fn)
+
+
 def preset_frames(dev, dens, env, params_he):
     """Configs 3 and 4 as they ship, at 800x800 on the card (phases 9-10):
     config 3's render_only_step (reference sampler, cache off: no bake, no
     query), config 4's frame_step (the reference vertex walk and 64-step
     target walks, the train step, the two-phase march, the compacted
     shade, the K1 f32 query), 32 train_only_steps whose mse must fall, the
-    stages of both frames, one profiled frame each, and K1 f32 held to
-    its plain version on config 4's real query rows. Returns (K1 f32's
+    stages of both frames, one profiled frame each, both renders in the
+    CLI's 32-row bands (warm, profiled, beside the unbanded ones), and K1
+    f32 held to its plain version on config 4's real query rows. Returns
+    (K1 f32's
     launches over the 4 timed config-4 frames, its max abs error vs plain
     and vs float64 there)."""
+    from neuralradiancecaching_tpu_torch import cli
     from neuralradiancecaching_tpu_torch.models import nrc
     from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
     from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
-                                                        targets)
+                                                        targets, tiled)
     from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
     c3, c4 = preset_config("config3"), preset_config("config4")
     check(c3.path.sampler == c4.path.sampler == "reference"
@@ -1129,6 +1192,10 @@ def preset_frames(dev, dens, env, params_he):
     profile_call("config 3 render_only_step", lambda: frame.render_only_step(
         state, scene, gen, c3))
     del imgs
+    # the same frame as the CLI renders it (its bands above 512x512), warm
+    band = cli._band_rows(PRESET_SIDE, PRESET_SIDE)
+    banded_frames("config 3", lambda: tiled.render_banded(
+        state, scene, gen, c3, band_rows=band), band, med, peak)
 
     # -- 10. config 4: the online frame with the reference sampler ------------
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1220,6 +1287,11 @@ def preset_frames(dev, dens, env, params_he):
         f" of the rays query the cache")
     profile_call("config 4 frame_step", lambda: frame.frame_step(
         state, scene, gen, c4))
+    # the render half as the CLI's nrc-online renders it, banded, warm
+    peak_r = stage_peak(lambda: frame.render_only_step(state, scene, gen, c4))
+    banded_frames("config 4", lambda: tiled.render_banded(
+        state, scene, gen, c4, band_rows=band), band,
+        statistics.median(render), peak_r)
     return launches, err, err_f64
 
 
@@ -1286,6 +1358,166 @@ def presets_small_vs_cpu(dev) -> None:
     check(h_frac >= SMALL_HASH_FRAC
           and float(h_diff.max()) <= 2 * c4.mrhe.learning_rate * 1.0001,
           "the card's config-4 hash-table step disagrees")
+
+
+def draw_band_uniforms(cfg, n_bands: int, band_n: int, gen):
+    """Every draw of a banded frame in ``render_banded``'s seam, one entry
+    per band: the cache off, one ``render_image`` draw (a list of spp); the
+    cache on, one walk's PathUniforms per copy of the spp x n_bands."""
+    from neuralradiancecaching_tpu_torch.render import pathtrace
+    spp = cfg.render.spp
+    if not cfg.render.use_nn:
+        def one():
+            return pathtrace.draw_path_uniforms(cfg, band_n, False, gen)
+        return [[one() for _ in range(spp)] if spp > 1 else one()
+                for _ in range(n_bands)]
+    return [pathtrace.draw_path_uniforms(cfg, band_n, True, gen)
+            for _ in range(spp * n_bands)]
+
+
+def banded_small_vs_cpu(dev) -> None:
+    """The card vs the CPU port on each branch of ``render_banded`` that
+    the CLI reaches (phase 13), at 32x32 in 8-row bands (12 bounces, so
+    the cache-off walks split) from one O(1) state, the same scene and
+    the same draws (drawn on the CPU): the cache off with each sampler,
+    the cached reference sampler (the in-band shade, then the reference
+    composite), the delta sampler's deferred shade packed and unpacked and
+    its in-band shade (quadrature light transmittance), and spp 2 by
+    virtual-ray expansion."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import pathtrace, tiled
+    from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
+    side, band = 32, 8
+    r = dataclasses.replace
+    base = progressive_config(side, side, small=True, field_dtype="float32")
+    base = r(base, render=r(base.render, query_cap_fraction=1.0,
+                            shade_cap_fraction=1.0))
+    dens, env = ball_cloud(base.volume.grid_shape), assets.synthesize_sky(32,
+                                                                         64)
+    pose = camera.orbit_position(1, 8, radius=150.0)
+    state = nrc.init_state(torch.Generator().manual_seed(2), base,
+                           device="cpu")
+    state = dataclasses.replace(state, mlp_params=he_params(
+        base.mlp, torch.Generator().manual_seed(3), "cpu"))
+    scenes: dict = {}
+    for sampler, use_nn, spp, packed, light in BANDED_CASES:
+        cfg = r(base, path=r(base.path, sampler=sampler, max_bounces=12,
+                             transmittance_mode=light),
+                render=r(base.render, use_nn=use_nn, spp=spp,
+                         live_pack_fraction=0.75 if packed else 0.0))
+        check(pathtrace.shade_deferred(cfg)
+              == (sampler != "reference" and light == "field"),
+              f"shade_deferred({sampler}, {light})")
+        u, imgs = None, []
+        for d in ("cpu", dev):
+            if (sampler, d) not in scenes:
+                sc = scn.make_scene(cfg, dens, env, device=d)
+                scenes[sampler, d] = dataclasses.replace(
+                    sc, camera=camera.make_camera(cfg.camera, d, *pose))
+            sc = scenes[sampler, d]
+            pack = tiled.frame_live_pack(sc, cfg, band) if packed else None
+            if u is None:
+                n_bands = pack.ro_p.shape[0] if packed else side // band
+                u = draw_band_uniforms(cfg, n_bands, band * side,
+                                       torch.Generator().manual_seed(7))
+            imgs.append(tiled.render_banded(
+                state_to(state, d), sc, None, cfg, band, pack=pack,
+                uniforms=to_device(u, d)).cpu().numpy().reshape(-1, 3))
+        sync()
+        ref, got = imgs
+        err = np.abs(got - ref)
+        frac = np.all(err <= 1e-4 + 1e-3 * np.abs(ref), axis=-1).mean()
+        rel = abs(got.mean() - ref.mean()) / abs(ref.mean())
+        label = (f"{sampler}, cache {'on' if use_nn else 'off'}, spp {spp}"
+                 + (", packed" if packed else "")
+                 + (f", {light} light transmittance" if light != "field"
+                    else ""))
+        log(f"card vs CPU port, render_banded {side}x{side} ({label}): "
+            f"{frac:.4f} of pixels within 1e-4 + 1e-3|ref|, mean rel diff "
+            f"{rel:.3e}, max abs diff {float(err.max()):.3e}")
+        check(bool(np.isfinite(got).all()) and frac >= SMALL_FRAC_OK
+              and rel <= SMALL_REL_MEAN,
+              f"the card's banded frame ({label}) disagrees with the CPU port")
+
+
+def cli_runs() -> dict:
+    """The port's CLI as a user runs it (phase 12), each subcommand in its
+    own process at its default size: ``pathtrace`` (config 3: 800x800, the
+    reference sampler, the cache off, 32-row bands), ``pathtrace --sampler
+    delta --spp 2``, ``nrc-online`` (config 4: 4 frames of a train step
+    and the banded cached render, then a checkpoint), the same resumed for
+    one frame, and ``progressive`` (config 5: 4 frames at 1920x1080, a
+    metrics row per frame). Each must exit 0 with a finite image of a
+    plausible mean; the resume must load (the Adam counter goes on from
+    the checkpoint's). Returns each run's frame times, peak memory of each
+    frame (of the frames since the previous row; the scene bake
+    excluded) and image mean."""
+    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    from neuralradiancecaching_tpu_torch.io import checkpoint, exr
+    from neuralradiancecaching_tpu_torch.models import nrc
+    root = REPO / "out" / "chip_smoke_cli"
+    ck = root / "nrc_online" / "ck"
+    ck2 = root / "nrc_online_resume" / "ck"
+    runs = [("pathtrace", "pathtrace", ["pathtrace"]),
+            ("pathtrace_delta_spp2", "pathtrace",
+             ["pathtrace", "--sampler", "delta", "--spp", "2"]),
+            ("nrc_online", "nrc_online",
+             ["nrc-online", "--frames", str(N_FRAMES), "--checkpoint",
+              str(ck)]),
+            ("nrc_online_resume", "nrc_online",
+             ["nrc-online", "--frames", "1", "--resume", str(ck),
+              "--checkpoint", str(ck2)]),
+            ("progressive", "progressive",
+             ["progressive", "--frames", str(N_FRAMES), "--sync-every",
+              "1"])]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = {}
+    for name, image, argv in runs:
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        metrics = d / "metrics.jsonl"
+        metrics.unlink(missing_ok=True)
+        sync()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "neuralradiancecaching_tpu_torch.cli",
+             *argv, "--out", str(d), "--metrics", str(metrics)],
+            cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  cli {name}: {line}")
+        check(proc.returncode == 0, f"cli {' '.join(argv)} exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        img = exr.read_exr(str(d / f"{image}.exr"))
+        (d / f"{image}.exr").unlink()
+        rows = [json.loads(line) for line in open(metrics)]
+        mean = float(img.mean())
+        check(img.ndim == 3 and img.shape[2] == 3
+              and bool(np.isfinite(img).all()), f"cli {name}: image "
+              f"{img.shape} not finite")
+        check(1e-3 < mean < 1e3, f"cli {name}: image mean {mean}")
+        frame_s = [row["frame_s"] for row in rows]
+        peaks = [row["peak_gib"] for row in rows]
+        out[name] = {"size": f"{img.shape[1]}x{img.shape[0]}",
+                     "frame_ms": [t * 1e3 for t in frame_s],
+                     "peak_gib": peaks, "mean": mean, "process_s": wall,
+                     "stdout": proc.stdout}
+        log(f"cli {name} ({' '.join(argv[1:]) or 'defaults'}) "
+            f"{img.shape[1]}x{img.shape[0]}: frame ms "
+            f"{[round(t * 1e3, 3) for t in frame_s]}, peak memory per frame "
+            f"{[round(p, 3) for p in peaks]} GiB, image mean {mean:.5f}; "
+            f"process {wall:.1f} s (start-up and scene bake included)")
+    check(f"resumed from {ck}" in out["nrc_online_resume"]["stdout"],
+          "the resumed run did not report its resume")
+    like = nrc.init_state(torch.Generator().manual_seed(0),
+                          cfg_mod.nrc_online_config(), device="cpu")
+    step = int(checkpoint.load(str(ck2), like).opt_step)
+    check(step == N_FRAMES + 1, f"the resumed run's Adam counter is {step}, "
+          f"not {N_FRAMES + 1}: the resume did not load")
+    return out
 
 
 def main() -> int:
@@ -1613,7 +1845,17 @@ def main() -> int:
 
     # -- 11. the card vs the CPU port: the oracle and config 4's frame -----
     presets_small_vs_cpu(dev)
+
+    # -- 12. the CLI at its default sizes, each run in its own process -----
+    torch.cuda.empty_cache()
+    runs = cli_runs()
+
+    # -- 13. the card vs the CPU port on the banded branches --------------
+    banded_small_vs_cpu(dev)
     log("quality: " + json.dumps(legs))
+    log("cli: " + json.dumps({k: {f: v for f, v in run.items()
+                                  if f != "stdout"}
+                              for k, run in runs.items()}))
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [

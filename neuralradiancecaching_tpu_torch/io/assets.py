@@ -7,8 +7,11 @@ The loaders (a) parse the real files when present in the checkout's
 raw fp32 x-major, read_file.cpp:50-78; Radiance RGBE ``.hdr``), and (b)
 otherwise synthesize deterministic stand-ins with identical shapes: an fbm
 procedural cloud and an analytic sky. The arrays equal the JAX package's
-for the same files or the same synthesis. The MNIST loaders belong to the
-side workloads and are not ported yet.
+for the same files or the same synthesis. Nothing outside the checkout is
+read: the JAX package also looks in a fixed absolute directory first,
+which the port does not follow; put the reference's ``cloud_sixteenth`` and
+``image/photostudio*.hdr`` in ``data/`` to load them. The MNIST loaders
+belong to the side workloads and are not ported yet.
 """
 
 from __future__ import annotations

@@ -67,3 +67,19 @@ def sample_hg_direction(old_dir: torch.Tensor, g: float,
     ``uniforms`` (2, ...) = (u_cos, u_phi) -- the JAX draw of phase.py:80
     splits its key into one uniform each."""
     return hg_direction_from_uniforms(uniforms[0], uniforms[1], old_dir, g)
+
+
+def uniform_sphere(shape, generator: torch.Generator | None = None,
+                   uniforms: torch.Tensor | None = None,
+                   dtype: torch.dtype = torch.float32,
+                   device: torch.device | str | None = None) -> torch.Tensor:
+    """Uniform directions on S^2, shape (*shape, 3), from ``uniforms`` (2,
+    *shape) = (u_z, u_phi) -- the JAX draw splits its key into one uniform
+    each -- or drawn from ``generator``."""
+    if uniforms is None:
+        uniforms = torch.rand((2, *shape), generator=generator, dtype=dtype,
+                              device=device)
+    z = uniforms[0] * 2.0 - 1.0
+    phi = uniforms[1] * (2.0 * math.pi)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * torch.cos(phi), z, r * torch.sin(phi)], dim=-1)

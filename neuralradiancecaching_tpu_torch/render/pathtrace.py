@@ -13,12 +13,22 @@ samplers (``PathTraceConfig.sampler``):
   render/tiled.py);
 * ``'delta'`` -- batched Woodcock tracking against a global or a local
   (dilated coarse-grid) majorant, binary scatter/escape, the same walk
-  skeleton with its own march split: with 'ratio' light transmittance and
-  'mc' env in-scatter it is the unbiased ground-truth oracle;
+  skeleton with its own march split and the same collect mode: with
+  'ratio' light transmittance and 'mc' env in-scatter it is the unbiased
+  ground-truth oracle;
 * ``'reference'`` -- the sequential march of nrc-forward.frag (the
   presets' default): K event slots per ray, the two-phase march, then the
   compacted or the dense per-slot shade with the segment transmittance
   between events and the cumulative-product throughput.
+
+The banded frame (render/tiled.py) takes each band's walk from
+:func:`render_band_deferred` -- the collect walk under the deferred shade
+(collision and delta with the 'field' light modes, :func:`shade_deferred`),
+else the walk that shades in the band -- and finishes the frame with
+:func:`finish_deferred`: the deferred shade and the cache query, then the
+env composite of :func:`render_image` (analytic rgb + T0 env for collision
+and delta; for the reference sampler the env where a ray misses the box or
+keeps a throughput of 1).
 
 The shade (:func:`trace_scene`) runs the dir and point lights with 'field',
 'quadrature' or 'ratio' segment transmittance, and the env in-scatter as
@@ -35,9 +45,8 @@ walk (:func:`path_uniform_shapes`). They are drawn from a
 package's own draws: fed them, a walk reproduces the JAX result lane for
 lane. Not ported (raise ``NotImplementedError``): the collision sampler's
 dense per-slot shade (``coll_shade_cap <= 0``), the NN-mode and the
-collect-mode collision march split, the reference march's entry kill
-(``march_entry_fraction > 0``), the 'premultiplied' env mode and the
-deferred shade of the delta sampler.
+collect-mode march split, the reference march's entry kill
+(``march_entry_fraction > 0``) and the 'premultiplied' env mode.
 """
 
 from __future__ import annotations
@@ -475,9 +484,6 @@ def _check_collision_slice(cfg: NRCConfig, use_nn: bool,
     if pt.coll_shade_cap <= 0.0 and not collect_events:
         raise NotImplementedError("only the prefix-packed event shade is "
                                   "ported yet")
-    if collect_events and pt.sampler != "collision":
-        raise NotImplementedError("the delta sampler's collect mode (its "
-                                  "deferred shade) is not ported")
 
 
 def _take(s, idx: torch.Tensor):
@@ -567,8 +573,9 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     collect_events=True skips the shade and returns (PathResult with
     scattered = 0, events (N, K, 7)): ray-major [pos(3), dir(3), weight(1)]
     rows, weight 0 for invalid slots, in bf16 when the scene fields are --
-    for the frame-global deferred shade (collision only; its march split is
-    not ported). entry_tau: the precomputed exact slot-0 optical depth per
+    for the frame-global deferred shade (both samplers record prefix-shaped
+    events; the collect-mode march split is not ported). entry_tau: the
+    precomputed exact slot-0 optical depth per
     ray (the pose-static hoist of render/tiled.py); computed here when None.
     """
     _check_collision_slice(cfg, use_nn, collect_events)
@@ -1086,23 +1093,31 @@ def render_image(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         trans = torch.mean(torch.stack(transs), dim=0)
 
     env_color = envmap_ops.sample_direct(scene.env, rd, hpm=False)
+    return _env_composite(cfg, ro, rd, rgb, trans, env_color), trans
+
+
+def _env_composite(cfg: NRCConfig, ro: torch.Tensor, rd: torch.Tensor,
+                   rgb: torch.Tensor, trans: torch.Tensor,
+                   env_color: torch.Tensor) -> torch.Tensor:
+    """The direct env composite (frag:848-864). Collision and delta: the
+    analytic primary escape rgb + T0 * env (delta samples T0 binarily,
+    E[trans] = T0); reference: the env where the ray misses the box or its
+    throughput stays 1."""
     if cfg.path.sampler in ("collision", "delta"):
-        # the primary escape is analytic (delta: binary, E[trans] = T0)
-        return rgb + trans[:, None] * env_color, trans
+        return rgb + trans[:, None] * env_color
     _, _, hit = volume_ops.ray_aabb(ro, rd, cfg.volume.box_size,
                                     cfg.volume.box_center)
-    see = (~hit | (trans >= 1.0))[:, None]
-    return torch.where(see, env_color, rgb), trans
+    return torch.where((~hit | (trans >= 1.0))[:, None], env_color, rgb)
 
 
 # -- the banded frame's deferred pieces --------------------------------------------
 
 def shade_deferred(cfg: NRCConfig) -> bool:
     """True when band shading is deferred to the frame-global finish: the
-    collision sampler with the deterministic 'field' light modes (the
-    deferred shade draws nothing, so moving it out of the bands is exact).
-    The JAX package also defers the 'delta' sampler, not ported here."""
-    return (cfg.path.sampler == "collision"
+    collision or delta sampler with the deterministic 'field' light modes
+    (the deferred shade draws nothing, so moving it out of the bands is
+    exact; both samplers record prefix-shaped (pos, dir, weight) events)."""
+    return (cfg.path.sampler in ("collision", "delta")
             and cfg.path.defer_shade
             and cfg.env_map.in_scatter_mode == "field"
             and cfg.path.transmittance_mode == "field")
@@ -1112,12 +1127,14 @@ def render_band_deferred(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
                          rd: torch.Tensor,
                          generator: Optional[torch.Generator],
                          entry_tau: Optional[torch.Tensor] = None,
-                         uniforms: Optional[torch.Tensor] = None):
+                         uniforms=None):
     """Band-local render work with the cache query -- and, when
     :func:`shade_deferred`, all event shading -- left to the caller's
     frame-global pass. Returns (rgb without the cache, trans, query_pos,
     query_dir, query_weight, events (N, K, 7)); K = 0 when the shade ran in
-    the walk. Each ray is traced at one sample."""
+    the walk (then ``entry_tau`` is unused: the walk computes its own, as
+    the JAX package's). Each ray is traced at one sample; ``uniforms`` is
+    what :func:`trace_path` takes."""
     if shade_deferred(cfg):
         res, ev = trace_path_collision(scene, cfg, ro, rd, generator,
                                        use_nn=True, uniforms=uniforms,
@@ -1185,23 +1202,19 @@ def shade_and_query(scene: Scene, cfg: NRCConfig, rgb: torch.Tensor,
     return rgb + q_w[:, None] * cache
 
 
-def finish_deferred(scene: Scene, cfg: NRCConfig, rd: torch.Tensor,
-                    rgb: torch.Tensor, trans: torch.Tensor,
+def finish_deferred(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
+                    rd: torch.Tensor, rgb: torch.Tensor, trans: torch.Tensor,
                     q_pos: torch.Tensor, q_dir: torch.Tensor,
                     q_w: torch.Tensor, query_fn: QueryFn,
                     events: Optional[torch.Tensor] = None,
                     env_rgb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Global finish of deferred bands: shade_and_query, then the analytic
-    env see-through composite rgb + T0 * env (frag:848-864 with the
-    collision sampler's exact T0). env_rgb: the precomputed direct env
-    radiance per pixel (pose-static); sampled from ``rd`` when None.
-    Returns the final rgb (N, 3)."""
-    if cfg.path.sampler != "collision":
-        raise NotImplementedError(
-            f"the banded render of sampler={cfg.path.sampler!r} is not "
-            "ported")
+    """Global finish of deferred bands: shade_and_query, then the env
+    composite of :func:`render_image` (collision and delta: rgb + T0 * env;
+    reference: the env on a miss or a throughput of 1). env_rgb: the
+    precomputed direct env radiance per pixel (pose-static); sampled from
+    ``rd`` when None. Returns the final rgb (N, 3)."""
     rgb = shade_and_query(scene, cfg, rgb, q_pos, q_dir, q_w, query_fn,
                           events)
     if env_rgb is None:
         env_rgb = envmap_ops.sample_direct(scene.env, rd, hpm=False)
-    return rgb + trans[:, None] * env_rgb
+    return _env_composite(cfg, ro, rd, rgb, trans, env_rgb)

@@ -1,20 +1,26 @@
-"""Banded rendering of the production frame: the walk per row band with the
-shade and the cache query deferred to one frame-global pass, over the
-pose-static live-ray pack.
+"""Banded rendering of large frames: the walk per row band with the shade
+and the cache query deferred to one frame-global pass, over the
+pose-static live-ray pack when that is on.
 
-Counterpart of ``neuralradiancecaching_tpu/render/tiled.py`` for the cached
-render (``RenderConfig.use_nn``) at one sample per pixel. The JAX package
-maps a band program over row bands (``lax.map``) so that its transients
-stay band-sized on the TPU. On the card one frame's bands fit in one call,
-so the port marches every band in ONE batched walk -- lane for lane the
-same walk, since the NN-mode walk has no cross-lane step. ``band_rows``
-still sets the pack's rounding to whole bands and the layout of the
-walk's random draws: band i draws its own (k_steps, 4, band_rows * width)
-block, JAX's ``uniform(fold_in(band_key, 0), ...)`` with the band key
-``fold_in(key, i)`` in the packed branch and ``fold_in(key, i *
-band_rows)`` in the unpacked one. The deferred shade draws nothing, so a
-frame is a deterministic function of those uniforms (``uniforms``, or
-drawn from a ``torch.Generator``).
+Counterpart of ``neuralradiancecaching_tpu/render/tiled.py``. The JAX
+package maps a band program over row bands (``lax.map``) so that its
+transients stay band-sized. The port does the same -- a Python loop over
+the bands -- wherever the band's walk has a cross-lane step whose cap is
+per band: the cache-off ``render_image`` (the collision cascade, the delta
+split, the reference march), and the cached walk that shades in the band
+(the reference sampler, or delta and collision without the deferred
+shade: the reference march's repack, the compacted or prefix-packed
+shade). The collect walk of the collision and delta samplers (the
+deferred shade) has no cross-lane step, so the port marches every band in
+ONE batched walk, lane for lane the same. spp > 1 with the cache on runs
+spp sample-major virtual copies of the bands and averages after the
+finish; with the cache off ``render_image`` averages its own samples.
+
+``band_rows`` sets the bands, the pack's rounding to whole bands and the
+layout of the random draws: band i draws as the JAX band walk with the
+band key ``fold_in(key, i)`` in the packed branch and ``fold_in(key, i *
+band_rows)`` otherwise (``uniforms``, or drawn from a
+``torch.Generator``). The deferred shade draws nothing.
 
 Pose-static hoists, as in the JAX package's progressive loop: the direct
 env colour (:func:`frame_env_color`), the exact entry optical depth
@@ -22,9 +28,7 @@ env colour (:func:`frame_env_color`), the exact entry optical depth
 which carries the packed entry tau) are computed once per camera pose and
 passed to :func:`render_banded`; the oct bake once per cache state.
 
-Not ported: ``render_tiled`` (the host band loop), spp > 1, the
-cache-off banded render and the banded render of the reference and delta
-samplers (all raise).
+Not ported: ``render_tiled`` (the host band loop of the JAX package).
 """
 
 from __future__ import annotations
@@ -131,75 +135,135 @@ def frame_live_pack(scene: Scene, cfg: NRCConfig,
                     et_p.reshape(-1, band_n))
 
 
-def band_uniform_shape(cfg: NRCConfig, n_bands: int, band_n: int):
-    """(n_bands, k_steps, 4, band_n): the walk's uniforms, one block per
-    band (the JAX band walk's own draw)."""
-    return (n_bands, *pathtrace.walk_uniform_shapes(cfg, band_n,
-                                                    use_nn=True)[0])
+def _per_band(uniforms, n_bands: int) -> list:
+    """The per-band draws: None (each band draws from the generator) or one
+    entry per band."""
+    if uniforms is None:
+        return [None] * n_bands
+    if len(uniforms) != n_bands:
+        raise ValueError(f"{n_bands} bands need {n_bands} sets of uniforms, "
+                         f"got {len(uniforms)}")
+    return list(uniforms)
+
+
+def _tile(x: torch.Tensor, spp: int) -> torch.Tensor:
+    """spp copies of x along its first axis, sample-major."""
+    return x if spp == 1 else x.repeat(spp, *[1] * (x.dim() - 1))
+
+
+def _walk_tensor(u) -> torch.Tensor:
+    """One band's collect-walk draw from what ``trace_path`` takes: the
+    walk's one march tensor, alone, in a list or in a PathUniforms (whose
+    shade draws nothing: the shade is deferred)."""
+    walk = u.walk if isinstance(u, pathtrace.PathUniforms) else u
+    return walk if isinstance(walk, torch.Tensor) else walk[0]
 
 
 def _walk_bands(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
                 rd_b: torch.Tensor, entry_tau: torch.Tensor,
-                generator: Optional[torch.Generator],
-                uniforms: Optional[torch.Tensor]):
-    """render_band_deferred over (n_bands, band_n) rays as one batched walk;
-    band i walks with uniforms[i]."""
+                generator: Optional[torch.Generator], uniforms=None):
+    """The collect walk (render_band_deferred with the deferred shade) over
+    (n_bands, band_n) rays as one batched walk; band i walks with
+    uniforms[i], the bands' draws stacked here. Lane for lane the per-band
+    walks: the NN-mode collision and delta collect walks have no
+    cross-lane step."""
     n_bands, band_n = ro_b.shape[:2]
-    shape = band_uniform_shape(cfg, n_bands, band_n)
+    shape = (n_bands, *pathtrace.walk_uniform_shapes(cfg, band_n,
+                                                     use_nn=True)[0])
     if uniforms is None:
-        uniforms = torch.rand(shape, generator=generator, dtype=ro_b.dtype,
-                              device=ro_b.device)
-    if tuple(uniforms.shape) != shape:
-        raise ValueError(f"uniforms must be {shape}, got "
-                         f"{tuple(uniforms.shape)}")
-    # (bands, k, 4, band_n) -> (k, 4, bands * band_n): lanes band-major
-    u = uniforms.permute(1, 2, 0, 3).reshape(shape[1], shape[2], -1)
+        u = torch.rand(shape, generator=generator, dtype=ro_b.dtype,
+                       device=ro_b.device)
+    else:
+        u = torch.stack([_walk_tensor(x)
+                         for x in _per_band(uniforms, n_bands)])
+    if tuple(u.shape) != shape:
+        raise ValueError(f"each band's uniforms must be {shape[1:]}, got "
+                         f"{tuple(u.shape[1:])}")
+    # (bands, k, rows, band_n) -> (k, rows, bands * band_n): lanes band-major
+    u = u.permute(1, 2, 0, 3).reshape(shape[1], shape[2], -1)
     return pathtrace.render_band_deferred(
         scene, cfg, ro_b.reshape(-1, 3), rd_b.reshape(-1, 3), None,
         entry_tau=entry_tau.reshape(-1), uniforms=u)
 
 
+def _plain_bands(scene: Scene, generator: Optional[torch.Generator],
+                 cfg: NRCConfig, band_rows: int, uniforms=None):
+    """The cache off: ``render_image`` band by band (its spp samples and
+    env composite included). uniforms: None or one entry per band, what
+    render_image takes."""
+    ro, rd = _rays(scene, cfg)
+    band_n = band_rows * cfg.render.width
+    n_bands = ro.shape[0] // band_n
+    return torch.cat([pathtrace.render_image(
+        scene, cfg, ro[i * band_n:(i + 1) * band_n],
+        rd[i * band_n:(i + 1) * band_n], generator, query_fn=None,
+        uniforms=u)[0] for i, u in enumerate(_per_band(uniforms, n_bands))])
+
+
 def _bands_program(scene: Scene, generator: Optional[torch.Generator],
                    cfg: NRCConfig, band_rows: int,
                    entry_tau: Optional[torch.Tensor] = None,
-                   uniforms: Optional[torch.Tensor] = None):
-    """The unpacked banded walk over every pixel ray, queries and shade
-    deferred."""
+                   uniforms=None):
+    """The unpacked banded walk over every pixel ray with the query (and,
+    when deferred, the shade) left to the finish. spp > 1 walks spp
+    sample-major virtual copies of the bands (uniforms: None or one entry
+    per copy). The collect walk runs as one batch; the in-walk shade's
+    packs and the reference march's repack take caps per band, so that
+    walk runs band by band."""
     h, w = cfg.render.height, cfg.render.width
     ro, rd = _rays(scene, cfg)
-    if entry_tau is None:
-        entry_tau = frame_entry_tau(scene, cfg)  # pose-static: hoist it
-    n_bands = h // band_rows
-    return _walk_bands(scene, cfg, ro.reshape(n_bands, band_rows * w, 3),
-                       rd.reshape(n_bands, band_rows * w, 3), entry_tau,
-                       generator, uniforms)
+    n_bands, band_n = h // band_rows, band_rows * w
+    spp = cfg.render.spp
+    ro_b = _tile(ro.reshape(n_bands, band_n, 3), spp)
+    rd_b = _tile(rd.reshape(n_bands, band_n, 3), spp)
+    if pathtrace.shade_deferred(cfg):
+        if entry_tau is None:
+            entry_tau = frame_entry_tau(scene, cfg)  # pose-static: hoist it
+        return _walk_bands(scene, cfg, ro_b, rd_b,
+                           _tile(entry_tau.reshape(n_bands, band_n), spp),
+                           generator, uniforms)
+    parts = [pathtrace.render_band_deferred(scene, cfg, ro_i, rd_i,
+                                            generator, uniforms=u)
+             for ro_i, rd_i, u in zip(ro_b, rd_b,
+                                      _per_band(uniforms, spp * n_bands))]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def _finish(state: nrc.NRCState, baked: torch.Tensor, scene: Scene, rgb,
             trans, q_pos, q_dir, q_w, ev, cfg: NRCConfig, env_rgb=None):
+    """The frame-global shade, query and env composite over the
+    (spp-expanded) lanes; spp > 1 composites each copy, then takes the
+    mean."""
     query_fn = nrc.make_baked_query_fn(state, baked, cfg)
-    _, rd = _rays(scene, cfg)
-    return pathtrace.finish_deferred(scene, cfg, rd, rgb, trans, q_pos,
-                                     q_dir, q_w, query_fn, events=ev,
-                                     env_rgb=env_rgb)
+    ro, rd = _rays(scene, cfg)
+    if env_rgb is None:
+        env_rgb = frame_env_color(scene, cfg)
+    spp = cfg.render.spp
+    out = pathtrace.finish_deferred(scene, cfg, _tile(ro, spp),
+                                    _tile(rd, spp), rgb, trans, q_pos, q_dir,
+                                    q_w, query_fn, events=ev,
+                                    env_rgb=_tile(env_rgb, spp))
+    return out.reshape(spp, -1, 3).mean(dim=0) if spp > 1 else out
 
 
 def _packed_bands_program(scene: Scene, generator: Optional[torch.Generator],
                           cfg: NRCConfig, band_rows: int,
-                          pack: Optional[LivePack] = None,
-                          uniforms: Optional[torch.Tensor] = None):
-    """The banded walk over the packed live rays only (the rest are exactly
-    T0 = 1, pure env). pack: :func:`frame_live_pack`, built here when
-    None. Padding lanes march the duplicate of packed slot 0's ray; their
-    query weights and events are masked."""
+                          pack: Optional[LivePack] = None, uniforms=None):
+    """The banded collect walk over the packed live rays only (the rest are
+    exactly T0 = 1, pure env); spp > 1 walks spp sample-major copies of the
+    packed bands. pack: :func:`frame_live_pack`, built here when None.
+    Padding lanes march the duplicate of packed slot 0's ray; their query
+    weights and events are masked."""
     if pack is None:
         pack = frame_live_pack(scene, cfg, band_rows)
-    rgb, trans, qp, qd, qw, ev = _walk_bands(scene, cfg, pack.ro_p,
-                                             pack.rd_p, pack.et_p,
-                                             generator, uniforms)
-    qw = torch.where(pack.val, qw, 0.0)
+    spp = cfg.render.spp
+    rgb, trans, qp, qd, qw, ev = _walk_bands(
+        scene, cfg, _tile(pack.ro_p, spp), _tile(pack.rd_p, spp),
+        _tile(pack.et_p, spp), generator, uniforms)
+    val = _tile(pack.val, spp)
+    qw = torch.where(val, qw, 0.0)
     if ev.shape[1] > 0:
-        ev = ev.masked_fill(~pack.val[:, None, None], 0.0)
+        ev = ev.masked_fill(~val[:, None, None], 0.0)
     return pack.inv, rgb, trans, qp, qd, qw, ev
 
 
@@ -207,13 +271,19 @@ def _finish_packed(state: nrc.NRCState, baked: torch.Tensor, scene: Scene,
                    inv, rgb_p, trans_p, qp, qd, qw, ev, cfg: NRCConfig,
                    env_rgb=None):
     """The frame-global shade and query over the packed lanes (caps
-    relative to the whole frame), the un-pack as one (n, 4) gather through
-    the inverse map (rays not packed: rgb 0, T0 1), and the env
-    composite."""
+    relative to the whole frame, spp times it with spp copies), the mean
+    over the copies, the un-pack as one (n, 4) gather through the inverse
+    map (rays not packed: rgb 0, T0 1), and the env composite."""
     query_fn = nrc.make_baked_query_fn(state, baked, cfg)
     n = cfg.render.width * cfg.render.height
+    spp = cfg.render.spp
     rgb_p = pathtrace.shade_and_query(scene, cfg, rgb_p, qp, qd, qw,
-                                      query_fn, events=ev, cap_n=n)
+                                      query_fn, events=ev, cap_n=spp * n)
+    if spp > 1:
+        # the pack is shared by every copy and the composite is linear in
+        # (rgb, T0): the mean before the un-pack is the mean after it
+        rgb_p = rgb_p.reshape(spp, -1, 3).mean(dim=0)
+        trans_p = trans_p.reshape(spp, -1).mean(dim=0)
     rgbt = torch.cat([rgb_p, trans_p[:, None]], dim=1)
     out = compact.gather_back(inv, rgbt, [0.0, 0.0, 0.0, 1.0])
     if env_rgb is None:
@@ -227,32 +297,36 @@ def render_banded(state: nrc.NRCState, scene: Scene,
                   baked: Optional[torch.Tensor] = None,
                   pack: Optional[LivePack] = None,
                   entry_tau: Optional[torch.Tensor] = None,
-                  uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One cached frame (H, W, 3): the banded walk with the shade and the
-    query deferred, then the frame-global finish. With
-    ``live_pack_fraction`` > 0 (and the deferred shade) only the packed
-    live rays march.
+                  uniforms=None) -> torch.Tensor:
+    """One frame (H, W, 3) in row bands of ``band_rows`` rows.
 
-    env_rgb: :func:`frame_env_color` (pose-static). baked: ``nrc.bake``
-    of the state (once per cache state). pack: :func:`frame_live_pack` with
+    The cache off: ``render_image`` band by band. The cache on: the banded
+    walk with the query (and, when :func:`pathtrace.shade_deferred`, the
+    shade) deferred, then the frame-global finish; with
+    ``live_pack_fraction`` > 0 and the deferred shade only the packed live
+    rays march. spp > 1 (cache on) walks spp virtual copies of the bands
+    and averages after the finish.
+
+    env_rgb: :func:`frame_env_color` (pose-static). baked: ``nrc.bake`` of
+    the state (once per cache state). pack: :func:`frame_live_pack` with
     the same band_rows (pose-static; carries the packed entry tau).
-    entry_tau: :func:`frame_entry_tau` for the unpacked branch. Each is
-    computed here when None. uniforms: the walk's draws, shaped
-    :func:`band_uniform_shape` for the packed (n_bands_p) or unpacked
-    (H / band_rows) bands; drawn from ``generator`` when None.
+    entry_tau: :func:`frame_entry_tau` for the unpacked collect walk. Each
+    is computed here when None. uniforms: the draws of the bands, in JAX's
+    band order, one entry per band: the cache off, what ``render_image``
+    takes for the band (its spp samples included), band key ``fold_in(key,
+    y0)``, y0 = band index x band_rows; the cache on, what ``trace_path``
+    takes for one copy of the band (e.g. ``draw_path_uniforms(cfg, band_n,
+    True, ...)``), over spp x bands sample-major copies with the same keys
+    (packed: ``fold_in(key, i)`` over spp x packed bands). Drawn from
+    ``generator`` when None.
     """
     h, w = cfg.render.height, cfg.render.width
     if h % band_rows:
         raise ValueError(f"height {h} is not a multiple of band_rows "
                          f"{band_rows}")
     if not cfg.render.use_nn:
-        raise NotImplementedError("the cache-off banded render is not "
-                                  "ported yet")
-    if cfg.path.sampler != "collision":
-        raise NotImplementedError(f"the banded render of sampler="
-                                  f"{cfg.path.sampler!r} is not ported")
-    if cfg.render.spp != 1:
-        raise NotImplementedError("spp > 1 is not ported yet")
+        return _plain_bands(scene, generator, cfg, band_rows,
+                            uniforms).reshape(h, w, 3)
     if baked is None:
         baked = nrc.bake(state, cfg)
     if (cfg.render.live_pack_fraction > 0.0

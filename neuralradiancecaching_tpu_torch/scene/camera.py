@@ -122,3 +122,14 @@ def orbit_position(frame: int, n_frames: int, radius: float = 64.0,
     pos = np.array([radius * math.sin(angle), height,
                     -radius * math.cos(angle)], dtype=np.float32)
     return pos, -pos / np.linalg.norm(pos)
+
+
+def fly_through_position(frame: int, n_frames: int,
+                         start=(0.0, 0.0, -64.0), end=(0.0, 0.0, -20.0)
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """A straight fly toward the volume (the WASD path, Input.cpp:50-98,
+    scripted): lerp the position, keep looking +z."""
+    t = frame / max(n_frames - 1, 1)
+    pos = (1 - t) * np.asarray(start, np.float32) + t * np.asarray(end,
+                                                                   np.float32)
+    return pos, np.array([0.0, 0.0, 1.0], dtype=np.float32)

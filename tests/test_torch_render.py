@@ -232,7 +232,8 @@ def test_port_never_imports_jax():
     config 5 with bf16 fields and the bf16 query (train, bake, the
     hoists and ``render_banded``), the unbiased oracle's render (delta,
     ratio tracking, MC in-scatter) and a reference-sampler online frame,
-    its config and its assets load no
+    its config and its assets, and the CLI's banded nrc-online (with a
+    checkpoint) and progressive runs on the CPU load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -298,6 +299,22 @@ def test_port_never_imports_jax():
                                    g, ref)
         assert bool(torch.isfinite(out.image).all())
         assert bool(torch.isfinite(out.mse))
+        import tempfile
+        from neuralradiancecaching_tpu_torch import cli
+        for name in ("nrc_online_config", "progressive_1080p_config"):
+            full = getattr(C, name)
+            setattr(C, name, lambda *a, full=full, **k: R(
+                full(*a, **k), volume=cfg.volume, env_map=cfg.env_map,
+                train=cfg.train, path=R(full(*a, **k).path,
+                                        collision_field_steps=4)))
+        assets.load_cloud = lambda path=None: dens
+        assets.load_env_map = lambda path=None: assets.synthesize_sky(16, 32)
+        cli._band_rows = lambda w, h: 4
+        with tempfile.TemporaryDirectory() as out:
+            for argv in (["nrc-online", "--frames", "1", "--checkpoint",
+                          out + "/ck"], ["progressive", "--frames", "1"]):
+                cli.main(["--device", "cpu", *argv, "--width", "16",
+                          "--height", "16", "--out", out])
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

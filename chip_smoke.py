@@ -28,10 +28,17 @@ density grid, fields at (32, 24, 40) voxels):
   reference sampler with the cache off; ``nrc_online_config`` with only
   ``fused_inference`` set: the reference sampler's train targets and
   cached render, K1 f32 on its query);
+- config 4 as it ships with the dense inference bake and the hash-path
+  train encode (``MRHEConfig.inference_bake="dense"``,
+  ``train_encode="hash"``), beside its oct-path frames;
 - the port's CLI (``python -m neuralradiancecaching_tpu_torch.cli``) as a
   user runs it, each subcommand in its own process at its default size:
   ``pathtrace`` and ``nrc-online`` at 800x800 through the banded render
-  in 32-row bands, ``progressive`` at 1920x1080.
+  in 32-row bands, ``progressive`` at 1920x1080, ``image-fit`` (500 steps
+  of batch 8192 on the env map); ``mnist`` at its defaults in-process on
+  synthetic labels (the machine has no MNIST label file);
+- the offline path tracer (``render/offline_pathtracer.py``) on the
+  stand-in cloud at 800x800 with its default 32 bounces.
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
 (csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
@@ -73,12 +80,22 @@ finite, the frames' times and peak memory logged; and the card vs the CPU
 port on every branch of ``render_banded`` the CLI reaches (the cache off
 with each sampler, the cached reference sampler, the delta sampler's
 deferred shade packed and unpacked and its in-band shade, spp 2) at
-32x32. Launch counts are
+32x32; config 4's frame with the dense bake and the hash train encode
+(phase 10c: 2 timed frames after a warm-up, K1 f32 on its query, and in
+turns against the oct path ``nrc.bake``, ``encode_baked`` on its 640,000
+query rows and ``compute_grads``; phase 11b: the card vs the CPU port on
+one such frame at 32x32 at the train tests' bounds); the side workloads
+(phase 14: ``image-fit`` in its own process, its PSNR and ms per step,
+``image_fit.train_step`` card vs CPU port, ``mnist`` whose train accuracy
+must pass 0.8); the offline path tracer (phase 15: 2 timed traces at
+800x800 after a warm-up, a profiled one, the card vs the CPU port at
+32x32 on the same uniforms). Launch counts are
 reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
 the card's name and power limit, the one before it the kernels' JSON
-record (K1 f32's launches are those of the config-4-preset frames); the
+record (K1 f32's launches are those of the config-4-preset frames, oct
+and dense/hash); the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -88,8 +105,10 @@ import dataclasses
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -162,6 +181,25 @@ BANDED_CASES = (("reference", False, 2, False, "field"),
                 ("delta", True, 1, False, "quadrature"),
                 ("collision", True, 2, False, "field"),
                 ("collision", True, 2, True, "field"))
+# config 4 as it ships with the dense inference bake and the hash-path
+# train encode (phase 10c): timed frames after a warm-up; its stages timed
+# in turns against the oct path's (time_ms over STAGE_REPS x STAGE_ROUNDS)
+DENSE_FRAMES, STAGE_REPS, STAGE_ROUNDS = 2, 3, 3
+# the image fit's one train step, card vs CPU port (phase 14): mse 1e-5
+# relative (a forward of the same state), MLP parameters 1e-6, hash
+# entries >= 99.9% within 1e-6 and all within 1e-5 (plain SGD moves an
+# entry by lr x its scatter-added gradient, summed in another order)
+FIT_MSE_REL, FIT_HASH_ALL = 1e-5, 1e-5
+# MNIST at the CLI's defaults (phase 14): synthetic idx1 labels, as many as
+# its --limit and its 2048 test rows; JAX's accuracy threshold
+# (tests/test_workloads.py:23)
+MNIST_TRAIN_LABELS, MNIST_TEST_LABELS, MNIST_MIN_ACC = 10000, 2048, 0.8
+# the offline path tracer (phase 15) at the presets' 800x800 with
+# OfflinePTConfig's defaults and the JAX tests' sun, straight down
+OFFLINE_SUN, OFFLINE_FRAMES = (0.0, -1.0, 0.0), 2
+# the card's name and power limit, set once the card is found: every new
+# phase's summary line carries it
+CARD = ""
 
 
 def log(msg: str) -> None:
@@ -506,7 +544,8 @@ def asset_source(cands) -> str:
 
 
 def state_to(state, device):
-    """An NRCState with every tensor moved to ``device``."""
+    """A state dataclass (NRCState, ImageFitState) with every tensor moved
+    to ``device``."""
     def conv(v):
         if isinstance(v, dict):
             return {k: x.to(device) for k, x in v.items()}
@@ -1285,6 +1324,10 @@ def preset_frames(dev, dens, env, params_he):
             f"float64: kernel {f64_e:.3e}, plain {plain_f64:.3e}")
     log(f"  config 4 render: {float((res.query_weight > 0).float().mean()):.4f}"
         f" of the rays query the cache")
+    # -- 10c. the same frame with the dense bake and the hash train encode
+    launches_dense = dense_hash_frames(
+        scene, state, c4, gen, batch, res, peak,
+        {"frame": ms, "train half": train, "render half": render})
     profile_call("config 4 frame_step", lambda: frame.frame_step(
         state, scene, gen, c4))
     # the render half as the CLI's nrc-online renders it, banded, warm
@@ -1292,7 +1335,163 @@ def preset_frames(dev, dens, env, params_he):
     banded_frames("config 4", lambda: tiled.render_banded(
         state, scene, gen, c4, band_rows=band), band,
         statistics.median(render), peak_r)
-    return launches, err, err_f64
+    return launches, err, err_f64, launches_dense
+
+
+def dense_hash_config(c4):
+    """Config 4 with the dense inference bake and the hash-path train
+    encode (MRHEConfig.inference_bake / train_encode)."""
+    r = dataclasses.replace
+    return r(c4, mrhe=r(c4.mrhe, inference_bake="dense", train_encode="hash"))
+
+
+def in_turns(fns: dict) -> dict:
+    """Each of two callables timed with time_ms in turns (a, b, b, a) after
+    a warm-up: {name: (median ms, both runs)}."""
+    a, b = fns
+    for fn in fns.values():
+        fn()
+    sync()
+    runs: dict[str, list] = {a: [], b: []}
+    for k in (a, b, b, a):
+        runs[k].append(time_ms(fns[k], STAGE_REPS, STAGE_ROUNDS))
+    return {k: (statistics.median(v), tuple(v)) for k, v in runs.items()}
+
+
+def dense_hash_frames(scene, state, c4, gen, batch, res, oct_peak: int,
+                      oct_ms: dict) -> int:
+    """Config 4 as it ships at 800x800 with the dense inference bake and
+    the hash-path train encode (phase 10c), beside phase 10's oct-path
+    frames in the same process (``oct_ms``: their frame, train-half and
+    render-half ms): DENSE_FRAMES timed frame_steps after a warm-up (K1 f32
+    on the query), their halves and peak memory, one profiled frame, and
+    in turns against the oct path: ``nrc.bake``, ``encode_baked`` on the
+    frame's 640,000 query rows (whose in-box rows must agree),
+    ``compute_grads`` on one train batch. Returns K1 f32's launches in the
+    timed frames."""
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, mrhe
+    from neuralradiancecaching_tpu_torch.render import frame
+    cd = dense_hash_config(c4)
+    st = state
+    halves: list[dict] = []
+
+    def online(i):
+        nonlocal st
+        h: dict[str, float] = {}
+        st, out = frame.frame_step(st, scene, gen, cd, timings=h)
+        if i:
+            halves.append(h)
+        return out
+
+    ms, outs = timed_frames(online, DENSE_FRAMES)
+    launches = fused_mlp.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    mses = [float(o.mse) for o in outs]
+    check(all(bool(torch.isfinite(o.image).all()) for o in outs)
+          and all(np.isfinite(mses)), "dense/hash config-4 frame not finite")
+    check(launches >= DENSE_FRAMES, f"K1 f32 launched {launches} times in "
+          f"{DENSE_FRAMES} dense/hash config-4 frames")
+    dense_ms = {"frame": ms,
+                "train half": [h["train"] * 1e3 for h in halves],
+                "render half": [h["render"] * 1e3 for h in halves]}
+    log(f"config 4 frame_step {PRESET_SIDE}x{PRESET_SIDE}, dense bake + hash "
+        f"train encode: " + "; ".join(
+            f"{k} ms {[round(t, 3) for t in v]}, median "
+            f"{statistics.median(v):.3f} (oct path, phase 10: median "
+            f"{statistics.median(oct_ms[k]):.3f})"
+            for k, v in dense_ms.items())
+        + f"; mse {[round(m, 5) for m in mses]}; K1 f32 launches "
+        f"{launches}; peak memory {peak / 2**30:.3f} GiB (oct path "
+        f"{oct_peak / 2**30:.3f}) [{CARD}]")
+    del outs
+    profile_call("config 4 frame_step, dense bake + hash train encode",
+                 lambda: frame.frame_step(st, scene, gen, cd))
+    baked = {"oct": nrc.bake(state, c4), "dense": nrc.bake(state, cd)}
+    log(f"  baked rows: oct {tuple(baked['oct'].shape)}, dense "
+        f"{tuple(baked['dense'].shape)} ({baked['dense'].numel() * 4 / 1e6:.1f}"
+        f" MB f32)")
+    qp, qd = res.query_pos, res.query_dir
+    f_oct = nrc.encode_baked(state, baked["oct"], qp, qd, c4)
+    f_dense = nrc.encode_baked(state, baked["dense"], qp, qd, cd)
+    pn = mrhe.normalize_pos(qp, c4.volume.box_size, c4.volume.box_center)
+    inside = ((pn >= 0) & (pn <= 1)).all(dim=-1)
+    diff = float((f_oct - f_dense)[inside].abs().max())
+    log(f"  encode_baked dense vs oct on {int(inside.sum())} in-box query rows "
+        f"of {qp.shape[0]}: max abs diff {diff:.3e}")
+    check(diff <= 1e-5, "the dense encode disagrees with the oct encode")
+    times = {
+        "nrc.bake": in_turns({
+            "oct": lambda: nrc.bake(state, c4),
+            "dense": lambda: nrc.bake(state, cd)}),
+        f"encode_baked ({qp.shape[0]} rows)": in_turns({
+            "oct": lambda: nrc.encode_baked(state, baked["oct"], qp, qd, c4),
+            "dense": lambda: nrc.encode_baked(state, baked["dense"], qp, qd,
+                                              cd)}),
+        f"compute_grads ({batch.pos.shape[0]} rows)": in_turns({
+            "oct": lambda: nrc.compute_grads(state, batch.pos, batch.dir,
+                                             batch.target, c4),
+            "hash": lambda: nrc.compute_grads(state, batch.pos, batch.dir,
+                                              batch.target, cd)})}
+    for label, t in times.items():
+        (a, (ta, ra)), (b, (tb, rb)) = t.items()
+        log(f"  layer {label}: {a} {ta:.3f} ms {tuple(round(x, 3) for x in ra)}"
+            f", {b} {tb:.3f} ms {tuple(round(x, 3) for x in rb)} "
+            f"({tb / ta:.2f}x) [{CARD}]")
+    return launches
+
+
+def dense_hash_small_vs_cpu(dev) -> None:
+    """The card vs the CPU port at 32x32 with the same draws (drawn on the
+    CPU): one frame_step of config 4 as it ships (tests' scale) with the
+    dense bake and the hash train encode, from O(1) weights, at the train
+    tests' bounds."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import frame, pathtrace, targets
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    cd = dense_hash_config(preset_config("config4", small=True))
+    rng = np.random.default_rng(0)
+    dens = rng.random(cd.volume.grid_shape, dtype=np.float32) * 0.5
+    env = assets.synthesize_sky(32, 64)
+    cpu_gen = torch.Generator().manual_seed(12)
+    u_t = targets.draw_train_uniforms(cd, cpu_gen, "cpu")
+    u_r = pathtrace.draw_path_uniforms(cd, 32 * 32, True, cpu_gen)
+    state = nrc.init_state(torch.Generator().manual_seed(2), cd,
+                           device="cpu")
+    state = dataclasses.replace(state, mlp_params=he_params(
+        cd.mlp, torch.Generator().manual_seed(3), "cpu"))
+    out = []
+    for d in ("cpu", dev):
+        sc = scn.make_scene(cd, dens, env, device=d)
+        st, o = frame.frame_step(state_to(state, d), sc, None, cd,
+                                 train_uniforms=to_device(u_t, d),
+                                 uniforms=to_device(u_r, d))
+        out.append((o.image.cpu().numpy(), float(o.mse), state_to(st, "cpu")))
+    sync()
+    (img_c, mse_c, st_c), (img_g, mse_g, st_g) = out
+    ok = np.all(np.abs(img_g - img_c) <= 1e-4 + 1e-3 * np.abs(img_c),
+                axis=-1)
+    rel = abs(img_g.mean() - img_c.mean()) / abs(img_c.mean())
+    mse_rel = abs(mse_g - mse_c) / abs(mse_c)
+    p_err = max(float((st_g.mlp_params[k] - st_c.mlp_params[k]).abs().max())
+                for k in st_c.mlp_params)
+    h_diff = (st_g.hash_table - st_c.hash_table).abs()
+    h_frac = float((h_diff <= SMALL_PARAM_TOL).float().mean())
+    log(f"card vs CPU port, dense/hash config-4 frame_step 32x32: "
+        f"{ok.mean():.4f} of pixels within 1e-4 + 1e-3|ref|, mean rel diff "
+        f"{rel:.3e}; mse {mse_g:.6f} vs {mse_c:.6f} (rel {mse_rel:.3e}); MLP "
+        f"parameters max abs diff {p_err:.3e}; hash entries within "
+        f"{SMALL_PARAM_TOL:g}: {h_frac:.6f}, max abs diff "
+        f"{float(h_diff.max()):.3e}")
+    check(bool(np.isfinite(img_g).all()) and ok.mean() >= SMALL_FRAC_OK
+          and rel <= SMALL_REL_MEAN,
+          "the card's dense/hash frame disagrees with the CPU port")
+    check(mse_rel <= SMALL_MSE_REL, "the card's dense/hash mse disagrees")
+    check(p_err <= SMALL_PARAM_TOL, "the card's dense/hash MLP step disagrees")
+    check(h_frac >= SMALL_HASH_FRAC
+          and float(h_diff.max()) <= 2 * cd.mrhe.learning_rate * 1.0001,
+          "the card's dense/hash hash-table step disagrees")
 
 
 def presets_small_vs_cpu(dev) -> None:
@@ -1520,6 +1719,195 @@ def cli_runs() -> dict:
     return out
 
 
+def image_fit_run() -> dict:
+    """``image-fit`` as a user runs it (phase 14), in its own process at its
+    defaults: 500 steps of batch 8192 with ``default_configs()`` on the env
+    map ``load_env_map`` finds. Its metrics row gives the PSNR and the
+    fit's seconds; the fitted image must come back finite."""
+    from neuralradiancecaching_tpu_torch.io import exr
+    d = REPO / "out" / "chip_smoke_cli" / "image_fit"
+    d.mkdir(parents=True, exist_ok=True)
+    metrics = d / "metrics.jsonl"
+    metrics.unlink(missing_ok=True)
+    sync()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "neuralradiancecaching_tpu_torch.cli",
+         "image-fit", "--out", str(d), "--metrics", str(metrics)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  cli image_fit: {line}")
+    check(proc.returncode == 0, f"cli image-fit exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    row = json.loads(metrics.read_text().splitlines()[-1])
+    img = exr.read_exr(str(d / "image_fit.exr"))
+    (d / "image_fit.exr").unlink()
+    check(img.ndim == 3 and img.shape[2] == 3
+          and bool(np.isfinite(img).all()), "cli image-fit: image not finite")
+    check(bool(np.isfinite(row["psnr"])) and row["psnr"] > 0.0,
+          f"cli image-fit: psnr {row['psnr']}")
+    steps = row["step"]
+    out = {"psnr_db": row["psnr"], "fit_s": row["fit_s"],
+           "ms_per_step": row["fit_s"] * 1e3 / steps, "process_s": wall,
+           "size": f"{img.shape[1]}x{img.shape[0]}"}
+    log(f"cli image_fit (defaults: {steps} steps of batch 8192) on "
+        f"{out['size']}: psnr {row['psnr']:.4f} dB, fit {row['fit_s']:.3f} s "
+        f"= {out['ms_per_step']:.3f} ms per step (the final full-image "
+        f"PSNR included); process {wall:.1f} s [{CARD}]")
+    return out
+
+
+def image_fit_small_vs_cpu(dev) -> None:
+    """``image_fit.train_step`` on the card vs the CPU port from one state
+    (default configs) and one batch of 8192 env-map pixels."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import image_fit
+    mrhe_cfg, mlp_cfg, opt = image_fit.default_configs()
+    img = torch.as_tensor(assets.load_env_map(), dtype=torch.float32)
+    h, w = img.shape[:2]
+    gen = torch.Generator().manual_seed(13)
+    state = image_fit.init_state(gen, mrhe_cfg, mlp_cfg, device="cpu")
+    idx = torch.randint(0, h * w, (8192,), generator=gen)
+    uv, rgb = image_fit.pixel_uv(idx, h, w), img.reshape(-1, 3)[idx]
+    out = []
+    for d in ("cpu", dev):
+        s, mse = image_fit.train_step(state_to(state, d), uv.to(d),
+                                      rgb.to(d), mrhe_cfg, mlp_cfg, opt)
+        out.append((s, float(mse)))
+    sync()
+    (s_c, mse_c), (s_g, mse_g) = out
+    mse_rel = abs(mse_g - mse_c) / abs(mse_c)
+    p_err = max(float((s_g.mlp_params[k].cpu() - s_c.mlp_params[k])
+                      .abs().max()) for k in s_c.mlp_params)
+    h_diff = (s_g.hash_table.cpu() - s_c.hash_table).abs()
+    h_frac = float((h_diff <= SMALL_PARAM_TOL).float().mean())
+    log(f"card vs CPU port, image_fit.train_step (batch 8192): mse "
+        f"{mse_g:.6f} vs {mse_c:.6f} (rel {mse_rel:.3e}); MLP parameters max "
+        f"abs diff {p_err:.3e}; hash entries within {SMALL_PARAM_TOL:g}: "
+        f"{h_frac:.6f}, max abs diff {float(h_diff.max()):.3e}")
+    check(mse_rel <= FIT_MSE_REL, "the card's image-fit mse disagrees")
+    check(p_err <= SMALL_PARAM_TOL, "the card's image-fit MLP step disagrees")
+    check(h_frac >= SMALL_HASH_FRAC and float(h_diff.max()) <= FIT_HASH_ALL,
+          "the card's image-fit hash-table step disagrees")
+
+
+def write_idx_labels(path: Path, labels: np.ndarray) -> None:
+    path.write_bytes(struct.pack(">ii", 2049, len(labels))
+                     + labels.astype(np.uint8).tobytes())
+
+
+def mnist_run() -> dict:
+    """``mnist`` at its defaults (phase 14): 300 steps on the first 10,000
+    train rows, test accuracy on 2048 t10k rows, run in-process through
+    ``cli.main``. The machine has no MNIST label file, so this writes
+    synthetic idx1 labels (seeded) into a temporary directory and points
+    the port's MNIST candidates there; the images are synthesized from the
+    labels as the loader does when no image file lies beside them."""
+    from neuralradiancecaching_tpu_torch import cli
+    from neuralradiancecaching_tpu_torch.io import assets
+    rng = np.random.default_rng(14)
+    saved = assets.MNIST_DIRS
+    with tempfile.TemporaryDirectory() as tmp:
+        write_idx_labels(Path(tmp) / "train-labels-idx1-ubyte",
+                         rng.integers(0, 10, MNIST_TRAIN_LABELS))
+        write_idx_labels(Path(tmp) / "t10k-labels-idx1-ubyte",
+                         rng.integers(0, 10, MNIST_TEST_LABELS))
+        log(f"mnist: synthetic labels ({MNIST_TRAIN_LABELS} train, "
+            f"{MNIST_TEST_LABELS} t10k, seeded) written as idx1 files; "
+            f"images synthesized from them")
+        assets.MNIST_DIRS = (tmp,)
+        metrics = Path(tmp) / "metrics.jsonl"
+        try:
+            sync()
+            t0 = time.perf_counter()
+            cli.main(["mnist", "--out", tmp, "--metrics", str(metrics)])
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            assets.MNIST_DIRS = saved
+        row = json.loads(metrics.read_text().splitlines()[-1])
+    log(f"cli mnist (defaults: {row['step']} steps, --limit "
+        f"{MNIST_TRAIN_LABELS}): train loss {row['train_loss']:.5f}, train "
+        f"accuracy {row['train_acc']:.4f}, test accuracy "
+        f"{row['test_acc']:.4f}; {wall:.3f} s in-process (image synthesis "
+        f"included) [{CARD}]")
+    check(row["train_acc"] > MNIST_MIN_ACC,
+          f"mnist train accuracy {row['train_acc']} <= {MNIST_MIN_ACC}")
+    return {k: row[k] for k in ("train_loss", "train_acc", "test_acc")} | {
+        "process_s": wall}
+
+
+def offline_trace(dev, dens) -> dict:
+    """The offline path tracer (phase 15) on the stand-in cloud's corner
+    table at 800x800 with OfflinePTConfig's defaults (32 bounces, 16
+    transmittance steps, 12 shadow samples) from config 4's camera:
+    OFFLINE_FRAMES timed traces after a warm-up, a profiled one (its
+    launches), the peak memory; the image finite with max > 0 and the
+    export angles in range; then at 32x32 the card against the CPU port
+    on the same uniforms, every lane within 1e-4 + 1e-3 |ref|."""
+    from neuralradiancecaching_tpu_torch.ops import volume
+    from neuralradiancecaching_tpu_torch.render import offline_pathtracer as opt
+    from neuralradiancecaching_tpu_torch.scene import camera
+    c4 = preset_config("config4")
+    ocfg = opt.OfflinePTConfig()
+    field = volume.build_corner_table(torch.as_tensor(dens, device=dev))
+    ro, rd = camera.pixel_rays(camera.make_camera(c4.camera, dev),
+                               PRESET_SIDE, PRESET_SIDE)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    u = opt.draw_offline_uniforms(gen, ocfg, ro.shape[0])
+
+    def run(i):
+        return opt.trace(field, c4.volume, ocfg, OFFLINE_SUN, 1.0, ro, rd, u)
+
+    ms, outs = timed_frames(run, OFFLINE_FRAMES)
+    peak = torch.cuda.max_memory_allocated()
+    res = outs[-1]
+    d = res.export_dir
+    check(bool(torch.isfinite(res.color).all())
+          and float(res.color.max()) > 0.0, "offline trace not finite or "
+          "black")
+    check(float(d[:, 0].min()) >= -np.pi - 1e-5
+          and float(d[:, 0].max()) <= np.pi + 1e-5
+          and float(d[:, 1].min()) >= -1e-5
+          and float(d[:, 1].max()) <= np.pi + 1e-5,
+          "offline export angles out of range")
+    med = statistics.median(ms)
+    log(f"offline trace {PRESET_SIDE}x{PRESET_SIDE} ({ocfg.max_bounces} "
+        f"bounces, {ocfg.transmittance_steps} transmittance steps, "
+        f"{ocfg.shadow_samples} shadow samples): ms "
+        f"{[round(t, 3) for t in ms]}, median {med:.3f}, "
+        f"{PRESET_SIDE ** 2 / med / 1e3:.3f} Mrays/s; mean color "
+        f"{float(res.color.mean()):.5f}, max {float(res.color.max()):.5f}; "
+        f"peak memory {peak / 2**30:.3f} GiB [{CARD}]")
+    del outs, res
+    profile_call("offline trace", lambda: run(0))
+
+    # the card vs the CPU port at 32x32 on the same uniforms
+    ro_s, rd_s = camera.pixel_rays(camera.make_camera(c4.camera, "cpu"), 32,
+                                   32)
+    u_s = opt.draw_offline_uniforms(torch.Generator().manual_seed(16), ocfg,
+                                    32 * 32)
+    field_c = volume.build_corner_table(torch.as_tensor(dens))
+    ref = opt.trace(field_c, c4.volume, ocfg, OFFLINE_SUN, 1.0, ro_s, rd_s,
+                    u_s)
+    got = opt.trace(field, c4.volume, ocfg, OFFLINE_SUN, 1.0, ro_s.to(dev),
+                    rd_s.to(dev), u_s.to(dev))
+    for name in ("color", "export_pos", "export_dir"):
+        g = getattr(got, name).cpu().numpy()
+        r = getattr(ref, name).numpy()
+        ok = np.all(np.abs(g - r) <= 1e-4 + 1e-3 * np.abs(r), axis=-1)
+        log(f"card vs CPU port, offline trace 32x32 {name}: {ok.mean():.4f} "
+            f"of lanes within 1e-4 + 1e-3|ref|, max abs diff "
+            f"{float(np.abs(g - r).max()):.3e}")
+        check(bool(np.isfinite(g).all()) and bool(ok.all()),
+              f"the card's offline trace ({name}) disagrees with the CPU "
+              f"port")
+    return {"ms": ms, "peak_gib": peak / 2**30}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1545,6 +1933,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
+    global CARD
+    CARD = smi
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
@@ -1838,13 +2228,17 @@ def main() -> int:
 
     # -- 9-10. configs 3 and 4 as they ship --------------------------------
     torch.cuda.empty_cache()
-    launches_preset, err, err_f64 = preset_frames(dev, dens, env, params_he)
+    launches_preset, err, err_f64, launches_dense = preset_frames(
+        dev, dens, env, params_he)
     k1_err, k1_err_f64 = max(k1_err, err), max(k1_err_f64, err_f64)
     log(f"K1 f32 launches: {launches_online} on the 4 collision online "
-        f"frames, {launches_preset} on the 4 config-4-preset frames")
+        f"frames, {launches_preset} on the 4 config-4-preset frames, "
+        f"{launches_dense} on the {DENSE_FRAMES} dense/hash config-4 frames")
 
-    # -- 11. the card vs the CPU port: the oracle and config 4's frame -----
+    # -- 11. the card vs the CPU port: the oracle and config 4's frame, and
+    #    config 4's frame with the dense bake and the hash train encode ------
     presets_small_vs_cpu(dev)
+    dense_hash_small_vs_cpu(dev)
 
     # -- 12. the CLI at its default sizes, each run in its own process -----
     torch.cuda.empty_cache()
@@ -1852,15 +2246,27 @@ def main() -> int:
 
     # -- 13. the card vs the CPU port on the banded branches --------------
     banded_small_vs_cpu(dev)
+
+    # -- 14. the side workloads: image-fit in its own process, mnist ------
+    torch.cuda.empty_cache()
+    fit = image_fit_run()
+    image_fit_small_vs_cpu(dev)
+    mnist = mnist_run()
+
+    # -- 15. the offline path tracer ----------------------------------------
+    torch.cuda.empty_cache()
+    offline = offline_trace(dev, dens)
     log("quality: " + json.dumps(legs))
     log("cli: " + json.dumps({k: {f: v for f, v in run.items()
                                   if f != "stdout"}
                               for k, run in runs.items()}))
+    log("workloads: " + json.dumps({"image_fit": fit, "mnist": mnist,
+                                    "offline_trace": offline}))
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        k1_record("fused_mlp", launches_preset, k1_err, k1_err_f64, k1_times,
-                  k1_flop, k1_bytes),
+        k1_record("fused_mlp", launches_preset + launches_dense, k1_err,
+                  k1_err_f64, k1_times, k1_flop, k1_bytes),
         k1_bf16,
         {"name": "matmul", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/matmul.cu",

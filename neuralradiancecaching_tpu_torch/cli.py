@@ -1,9 +1,11 @@
-"""Command-line entry points of the port -- the rendering subcommands of
+"""Command-line entry points of the port -- the subcommands of
 ``neuralradiancecaching_tpu/cli.py`` (the reference's ``RunNrcHpm`` main
 loop, src/main.cpp:109-284, one headless subcommand per workload) with the
 same arguments, defaults and control flow, on one device: EXR and PNG
 output for swapchain presentation, JSONL metrics for the ImGui panel.
 
+  python -m neuralradiancecaching_tpu_torch.cli mnist
+  python -m neuralradiancecaching_tpu_torch.cli image-fit --steps 500
   python -m neuralradiancecaching_tpu_torch.cli pathtrace --out out
   python -m neuralradiancecaching_tpu_torch.cli nrc-online --frames 8 --out out
   python -m neuralradiancecaching_tpu_torch.cli progressive --frames 4 --out out
@@ -19,8 +21,10 @@ synchronize; metrics rows carry it unrounded, and on the card the peak
 device memory of the frames since the previous row (the scene bake
 excluded).
 
-Not here yet: the data-parallel ``--mesh`` and ``--probe-caps`` and the
-side workloads' ``mnist`` and ``image-fit`` subcommands.
+``mnist`` reads its idx label files from the checkout's ``data/mnist/``
+(``io/assets.py:MNIST_DIRS``; none ships, nothing is downloaded) and exits
+with an error without them. Not here yet: the data-parallel ``--mesh`` and
+``--probe-caps``.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import torch
 
 from neuralradiancecaching_tpu_torch import config as cfg_mod
 from neuralradiancecaching_tpu_torch.io import assets, checkpoint, exr
-from neuralradiancecaching_tpu_torch.models import nrc
+from neuralradiancecaching_tpu_torch.models import image_fit, mnist_mlp, nrc
 from neuralradiancecaching_tpu_torch.render import frame as frame_mod
 from neuralradiancecaching_tpu_torch.render import pathtrace, tiled
 from neuralradiancecaching_tpu_torch.scene import camera as cam_mod
@@ -120,6 +124,46 @@ def _with_sampler(cfg, sampler: str | None):
         return cfg
     return dataclasses.replace(cfg, path=dataclasses.replace(
         cfg.path, sampler=sampler))
+
+
+def cmd_mnist(args) -> None:
+    """Config 1: the MNIST MLP, then its accuracy on 2048 test rows."""
+    dev = args.device
+    cfg = cfg_mod.mnist_config()
+    x, y = assets.load_mnist("train", limit=args.limit)
+    log = MetricsLogger(args.metrics)
+    state, loss, acc = mnist_mlp.train(x, y, cfg.mlp, cfg.mlp_opt,
+                                       steps=args.steps, seed=args.seed,
+                                       device=dev)
+    xt, yt = assets.load_mnist("test", limit=2048)
+    _, test_acc = mnist_mlp.loss_fn(state.params, torch.as_tensor(xt,
+                                                                  device=dev),
+                                    torch.as_tensor(yt, device=dev), cfg.mlp)
+    log.log(args.steps, train_loss=loss, train_acc=acc,
+            test_acc=float(test_acc))
+    print(f"mnist: loss={loss:.4f} acc={acc:.3f} test_acc={float(test_acc):.3f}")
+
+
+def cmd_image_fit(args) -> None:
+    """Config 2: fit the env map with the 2-D hash encode, then write the
+    fitted image; the metrics row holds the PSNR and the fit's seconds
+    (its steps and the full-image PSNR, ending in a synchronize)."""
+    dev = args.device
+    img = assets.load_env_map()
+    log = MetricsLogger(args.metrics)
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, psnr_db = image_fit.fit_image(img, steps=args.steps,
+                                         seed=args.seed, device=dev)
+    _sync(dev)
+    log.log(args.steps, psnr=psnr_db, fit_s=time.perf_counter() - t0)
+    print(f"image-fit: psnr={psnr_db:.2f} dB over {args.steps} steps")
+    if args.out:
+        mrhe_cfg, mlp_cfg, _ = image_fit.default_configs()
+        h, w = img.shape[:2]
+        uv = image_fit.pixel_uv(torch.arange(h * w, device=dev), h, w)
+        pred = image_fit.predict(state, uv, mrhe_cfg, mlp_cfg)
+        _save_frame(args.out, "image_fit", pred.reshape(h, w, 3))
 
 
 def cmd_pathtrace(args) -> None:
@@ -306,6 +350,17 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("mnist", help="BASELINE config 1")
+    _common(sp)
+    sp.add_argument("--steps", type=int, default=300)
+    sp.add_argument("--limit", type=int, default=10000)
+    sp.set_defaults(fn=cmd_mnist)
+
+    sp = sub.add_parser("image-fit", help="BASELINE config 2")
+    _common(sp)
+    sp.add_argument("--steps", type=int, default=500)
+    sp.set_defaults(fn=cmd_image_fit)
 
     sp = sub.add_parser("pathtrace", help="BASELINE config 3 (cache off)")
     _common(sp)

@@ -1,6 +1,6 @@
-"""Scene asset loading with synthesize fallbacks -- the port's own copy of
-the scene loaders of ``neuralradiancecaching_tpu/io/assets.py`` and
-``io/hdr.py`` (numpy only).
+"""Asset loading with synthesize fallbacks -- the port's own copy of the
+loaders of ``neuralradiancecaching_tpu/io/assets.py`` and ``io/hdr.py``
+(numpy only).
 
 The loaders (a) parse the real files when present in the checkout's
 ``data/`` directory, with the reference's exact layout (ReadFileDensity3D
@@ -10,13 +10,17 @@ procedural cloud and an analytic sky. The arrays equal the JAX package's
 for the same files or the same synthesis. Nothing outside the checkout is
 read: the JAX package also looks in a fixed absolute directory first,
 which the port does not follow; put the reference's ``cloud_sixteenth`` and
-``image/photostudio*.hdr`` in ``data/`` to load them. The MNIST loaders
-belong to the side workloads and are not ported yet.
+``image/photostudio*.hdr`` in ``data/`` to load them. MNIST reads the idx
+label files from ``data/mnist/`` (none ships with the repository, and
+nothing is downloaded: without a label file ``load_mnist`` raises, as the
+JAX loader does), and the idx image files beside them when present, else
+images synthesized from the labels.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Tuple
 
 import numpy as np
@@ -32,6 +36,9 @@ CLOUD_FILES = (os.path.join(CACHE_DIR, "cloud_sixteenth"),)
 ENV_FILES = (os.path.join(CACHE_DIR, "image/photostudio_4k.hdr"),
              os.path.join(CACHE_DIR, "image/photostudio.hdr"),
              os.path.join(CACHE_DIR, "photostudio.hdr"))
+# directories searched in order for MNIST's {train,t10k}-labels-idx1-ubyte
+# (the images are read from beside the labels found)
+MNIST_DIRS = (os.path.join(CACHE_DIR, "mnist"),)
 
 
 def read_density3d(path: str, shape: Tuple[int, int, int]) -> np.ndarray:
@@ -195,3 +202,99 @@ def read_hdr(path: str) -> np.ndarray:
                     bp += count
                     x += count
     return _decode_rgbe(out)
+
+
+# ---------------------------------------------------------------------------
+# MNIST: the idx readers, and digit images synthesized from the labels when
+# the image files are missing (as in the reference checkout)
+# ---------------------------------------------------------------------------
+
+# 5x7 digit glyph bitmaps for the synthetic images
+_DIGIT_GLYPHS = [
+    "01110 10001 10011 10101 11001 10001 01110",  # 0
+    "00100 01100 00100 00100 00100 00100 01110",  # 1
+    "01110 10001 00001 00010 00100 01000 11111",  # 2
+    "11110 00001 00001 01110 00001 00001 11110",  # 3
+    "00010 00110 01010 10010 11111 00010 00010",  # 4
+    "11111 10000 11110 00001 00001 10001 01110",  # 5
+    "00110 01000 10000 11110 10001 10001 01110",  # 6
+    "11111 00001 00010 00100 01000 01000 01000",  # 7
+    "01110 10001 10001 01110 10001 10001 01110",  # 8
+    "01110 10001 10001 01111 00001 00010 01100",  # 9
+]
+
+
+def read_idx_labels(path: str) -> np.ndarray:
+    """MNIST idx1 label file parser (mnist_reader.hpp equivalent)."""
+    with open(path, "rb") as f:
+        magic, count = struct.unpack(">ii", f.read(8))
+        if magic != 2049:
+            raise ValueError(f"bad idx1 magic {magic}")
+        return np.frombuffer(f.read(count), dtype=np.uint8)
+
+
+def read_idx_images(path: str) -> np.ndarray:
+    """MNIST idx3 image file parser -> (N, 28, 28) uint8."""
+    with open(path, "rb") as f:
+        magic, count, rows, cols = struct.unpack(">iiii", f.read(16))
+        if magic != 2051:
+            raise ValueError(f"bad idx3 magic {magic}")
+        data = np.frombuffer(f.read(count * rows * cols), dtype=np.uint8)
+        return data.reshape(count, rows, cols)
+
+
+def synthesize_digit_images(labels: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Render 28x28 digit images from labels: upscaled glyphs with random
+    shift + blur + noise. Deterministic; learnable by a tiny MLP."""
+    rng = np.random.default_rng(seed)
+    glyphs = np.zeros((10, 7, 5), dtype=np.float32)
+    for d, rows in enumerate(_DIGIT_GLYPHS):
+        for r, row in enumerate(rows.split()):
+            for c, ch in enumerate(row):
+                glyphs[d, r, c] = float(ch == "1")
+    big = np.kron(glyphs, np.ones((3, 4), dtype=np.float32))  # (10, 21, 20)
+
+    n = labels.shape[0]
+    out = np.zeros((n, 28, 28), dtype=np.float32)
+    dx = rng.integers(0, 28 - 20, size=n)
+    dy = rng.integers(0, 28 - 21, size=n)
+    for i in range(n):
+        g = big[labels[i]]
+        out[i, dy[i]:dy[i] + 21, dx[i]:dx[i] + 20] = g
+    # box blur + noise
+    blurred = out.copy()
+    blurred[:, 1:] += out[:, :-1]
+    blurred[:, :-1] += out[:, 1:]
+    blurred[:, :, 1:] += out[:, :, :-1]
+    blurred[:, :, :-1] += out[:, :, 1:]
+    blurred /= 5.0
+    blurred += rng.normal(0, 0.05, size=blurred.shape).astype(np.float32)
+    return np.clip(blurred, 0.0, 1.0)
+
+
+def load_mnist(split: str = "train", limit: int | None = None):
+    """Returns (images (N, 784) float32 in [0,1], labels (N,) int32).
+
+    Reads the first ``{name}-labels-idx1-ubyte`` of :data:`MNIST_DIRS`
+    (FileNotFoundError when there is none), and the
+    ``{name}-images-idx3-ubyte`` beside it if present, else synthesizes
+    the images from the labels.
+    """
+    name = "train" if split == "train" else "t10k"
+    label_paths = [os.path.join(d, f"{name}-labels-idx1-ubyte")
+                   for d in MNIST_DIRS]
+    label_path = next((p for p in label_paths if os.path.exists(p)), None)
+    if label_path is None:
+        raise FileNotFoundError(
+            f"no MNIST label file {name}-labels-idx1-ubyte in {MNIST_DIRS}")
+    labels = read_idx_labels(label_path)
+    if limit:
+        labels = labels[:limit]
+    image_path = os.path.join(os.path.dirname(label_path),
+                              f"{name}-images-idx3-ubyte")
+    if os.path.exists(image_path):
+        images = read_idx_images(image_path)[:len(labels)]
+        images = images.astype(np.float32) / 255.0
+    else:
+        images = synthesize_digit_images(labels)
+    return images.reshape(len(labels), -1), labels.astype(np.int32)

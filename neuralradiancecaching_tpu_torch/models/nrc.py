@@ -1,13 +1,15 @@
 """The neural radiance cache: MRHE + one-blob encoding into the tiny MLP,
-queried through the oct-baked hash rows and trained online with guarded
-Adam (or the reference's SGD pair).
+queried through the baked hash rows (oct or dense) or the hash path, and
+trained online with guarded Adam (or the reference's SGD pair).
 
 Counterpart of ``neuralradiancecaching_tpu/models/nrc.py``. ``NRCState``
 keeps the JAX state's fields as tensors, so a JAX state converts with
 :func:`state_from_numpy` and both packages compute with identical
 parameters. Gradients come from autograd through the plain MLP and the
-oct train encode (:func:`..ops.mrhe.encode_oct_train`); the optimizer
-steps are the plain tensor functions of :mod:`..ops.optimizers`.
+oct train encode (:func:`..ops.mrhe.encode_oct_train`), or the hash-path
+encode (:func:`..ops.mrhe.encode`) when ``MRHEConfig.train_encode`` asks
+for it or the table size is not a power of two; the optimizer steps are
+the plain tensor functions of :mod:`..ops.optimizers`.
 """
 
 from __future__ import annotations
@@ -92,16 +94,19 @@ def state_from_numpy(d: Mapping, device: torch.device | str = "cuda"
 def encode(hash_table: torch.Tensor, pos: torch.Tensor,
            direction: torch.Tensor, cfg: NRCConfig) -> torch.Tensor:
     """The trainable encode (EncodeRay, nrc-train.comp:703-713): [L*F MRHE
-    features through the oct rows | one-blob features], differentiable in
-    the hash table."""
-    if not (cfg.mrhe.train_encode == "oct"
-            and mrhe_ops.oct_supported(cfg.mrhe)):
-        raise NotImplementedError("the hash-path train encode is not ported "
-                                  "yet")
+    features | one-blob features], differentiable in the hash table. The
+    MRHE features go through the oct rows when ``train_encode`` is 'oct'
+    and the table size a power of two, else through the hash path."""
     pos_norm = mrhe_ops.normalize_pos(pos, cfg.volume.box_size,
                                       cfg.volume.box_center)
-    mrhe_feats = mrhe_ops.encode_oct_train(hash_table, pos_norm, cfg.mrhe,
-                                           cfg.quirks, pos_raw=pos)
+    if (cfg.mrhe.train_encode == "oct"
+            and mrhe_ops.oct_supported(cfg.mrhe)):
+        mrhe_feats = mrhe_ops.encode_oct_train(hash_table, pos_norm,
+                                               cfg.mrhe, cfg.quirks,
+                                               pos_raw=pos)
+    else:
+        mrhe_feats = mrhe_ops.encode(hash_table, pos_norm, cfg.mrhe,
+                                     cfg.quirks, pos_raw=pos)
     blob_feats = oneblob_ops.encode_dir(direction, cfg.oneblob, cfg.quirks)
     return torch.cat([mrhe_feats, blob_feats], dim=-1)
 
@@ -115,14 +120,29 @@ def _inference_mlp(params, x: torch.Tensor, cfg: NRCConfig) -> torch.Tensor:
     return fused_mlp.apply_plain(params, x, cfg.mlp)
 
 
+def query(state: NRCState, pos: torch.Tensor, direction: torch.Tensor,
+          cfg: NRCConfig) -> torch.Tensor:
+    """Cache inference through the trainable encode (the fragment Forward):
+    (N, 3), (N, 3) -> (N, 3)."""
+    x = encode(state.hash_table, pos, direction, cfg)
+    return _inference_mlp(state.mlp_params, x, cfg)
+
+
 def bake(state: NRCState, cfg: NRCConfig) -> torch.Tensor:
-    """The MRHE inference representation: oct-packed corner rows (one row
-    gather per level per query), stored bf16 when the scene fields are.
-    Call after each optimizer step."""
-    if cfg.mrhe.inference_bake != "oct":
-        raise NotImplementedError(
-            f"inference_bake={cfg.mrhe.inference_bake!r} is not ported yet")
-    baked = mrhe_ops.bake_oct(state.hash_table, cfg.mrhe)
+    """The MRHE inference representation (``MRHEConfig.inference_bake``):
+    'oct' corner-packed hash rows (one row gather per level per query),
+    'dense' corner-packed grids of the low-resolution levels (both stored
+    bf16 when the scene fields are), 'none' an empty tensor of the table's
+    dtype (the query takes the hash path). Call after each optimizer
+    step."""
+    mode = cfg.mrhe.inference_bake
+    if mode == "oct":
+        baked = mrhe_ops.bake_oct(state.hash_table, cfg.mrhe)
+    elif mode == "dense":
+        baked = mrhe_ops.bake_dense(state.hash_table, cfg.mrhe)
+    else:
+        return torch.zeros((0,), dtype=state.hash_table.dtype,
+                           device=state.hash_table.device)
     if cfg.volume.field_dtype == "bfloat16":
         baked = baked.to(torch.bfloat16)
     return baked
@@ -131,15 +151,25 @@ def bake(state: NRCState, cfg: NRCConfig) -> torch.Tensor:
 def encode_baked(state: NRCState, baked: torch.Tensor, pos: torch.Tensor,
                  direction: torch.Tensor, cfg: NRCConfig) -> torch.Tensor:
     """The gather half of query_baked: [L*F MRHE features from the baked
-    rows | one-blob features] rows, (N, 3), (N, 3) -> (N, 64); bf16 rows
-    when MLPConfig.inference_dtype is bf16 (index math and lerp fractions
-    stay f32)."""
-    bf16 = cfg.mlp.inference_dtype == "bfloat16"
+    rows of :func:`bake`'s mode | one-blob features] rows, (N, 3), (N, 3)
+    -> (N, 64); bf16 rows when MLPConfig.inference_dtype is bf16 and the
+    bake is 'oct' (index math and lerp fractions stay f32), f32 rows for
+    the 'dense' and 'none' modes whatever the inference dtype."""
+    mode = cfg.mrhe.inference_bake
+    bf16 = cfg.mlp.inference_dtype == "bfloat16" and mode == "oct"
     pos_norm = mrhe_ops.normalize_pos(pos, cfg.volume.box_size,
                                       cfg.volume.box_center)
-    mrhe_feats = mrhe_ops.encode_with_oct(
-        baked, pos_norm, cfg.mrhe, cfg.quirks, pos_raw=pos,
-        compute_dtype=torch.bfloat16 if bf16 else None)
+    if mode == "oct":
+        mrhe_feats = mrhe_ops.encode_with_oct(
+            baked, pos_norm, cfg.mrhe, cfg.quirks, pos_raw=pos,
+            compute_dtype=torch.bfloat16 if bf16 else None)
+    elif mode == "dense":
+        mrhe_feats = mrhe_ops.encode_with_baked(state.hash_table, baked,
+                                                pos_norm, cfg.mrhe,
+                                                cfg.quirks)
+    else:
+        mrhe_feats = mrhe_ops.encode(state.hash_table, pos_norm, cfg.mrhe,
+                                     cfg.quirks, pos_raw=pos)
     blob_feats = oneblob_ops.encode_dir(direction, cfg.oneblob, cfg.quirks)
     if bf16:
         blob_feats = blob_feats.to(torch.bfloat16)
@@ -238,6 +268,27 @@ def apply_grads(state: NRCState, grads, cfg: NRCConfig) -> NRCState:
                                               cfg.mrhe)
     return NRCState(mlp_params, mlp_momentum, hash_table, mlp_second,
                     hash_momentum, hash_second, opt_step)
+
+
+def dump_weights(state: NRCState, max_per_layer: int = 8) -> str:
+    """Human-readable weight summary in the JAX package's text format --
+    the debug equivalent of NeuralRadianceCache::PrintWeights
+    (NeuralRadianceCache.cpp:558-594), with per-layer stats (population
+    std) instead of a raw dump."""
+    def stats(w):
+        return (f"mean={float(w.mean()):+.5f} "
+                f"std={float(w.std(correction=0)):.5f} "
+                f"absmax={float(w.abs().max()):.5f}")
+
+    lines = []
+    for name in sorted(state.mlp_params):
+        w = state.mlp_params[name]
+        head = ", ".join(f"{float(v):+.4f}"
+                         for v in w.reshape(-1)[:max_per_layer])
+        lines.append(f"{name} {tuple(w.shape)}: {stats(w)} head=[{head}]")
+    h = state.hash_table
+    lines.append(f"hash {tuple(h.shape)}: {stats(h)}")
+    return "\n".join(lines)
 
 
 def train_step(state: NRCState, pos: torch.Tensor, direction: torch.Tensor,

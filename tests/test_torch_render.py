@@ -232,8 +232,9 @@ def test_port_never_imports_jax():
     config 5 with bf16 fields and the bf16 query (train, bake, the
     hoists and ``render_banded``), the unbiased oracle's render (delta,
     ratio tracking, MC in-scatter) and a reference-sampler online frame,
-    its config and its assets, and the CLI's banded nrc-online (with a
-    checkpoint) and progressive runs on the CPU load no
+    its config and its assets, the CLI's banded nrc-online (with a
+    checkpoint) and progressive runs, its mnist (on labels written here)
+    and image-fit runs, and the offline path tracer on the CPU load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -315,6 +316,28 @@ def test_port_never_imports_jax():
                           out + "/ck"], ["progressive", "--frames", "1"]):
                 cli.main(["--device", "cpu", *argv, "--width", "16",
                           "--height", "16", "--out", out])
+            import struct
+            rng = np.random.default_rng(0)
+            for name, n in (("train", 256), ("t10k", 64)):
+                with open(f"{out}/{name}-labels-idx1-ubyte", "wb") as f:
+                    f.write(struct.pack(">ii", 2049, n) + rng.integers(
+                        0, 10, n).astype(np.uint8).tobytes())
+            assets.MNIST_DIRS = (out,)
+            cli.main(["--device", "cpu", "mnist", "--steps", "2", "--out",
+                      out])
+            cli.main(["--device", "cpu", "image-fit", "--steps", "2",
+                      "--out", out])
+        from neuralradiancecaching_tpu_torch.ops import volume
+        from neuralradiancecaching_tpu_torch.render import (
+            offline_pathtracer as opt)
+        ocfg = opt.OfflinePTConfig(max_bounces=4, transmittance_steps=4,
+                                   shadow_samples=4)
+        ro = torch.zeros((8, 3)) + torch.tensor([0.0, 0.0, -400.0])
+        rd = torch.tensor([[0.0, 0.0, 1.0]]).expand(8, 3)
+        res = opt.trace(volume.build_corner_table(torch.tensor(dens)),
+                        cfg.volume, ocfg, [0.0, -1.0, 0.0], 1.0, ro, rd,
+                        opt.draw_offline_uniforms(g, ocfg, 8))
+        assert bool(torch.isfinite(res.color).all())
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

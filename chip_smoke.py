@@ -38,7 +38,15 @@ density grid, fields at (32, 24, 40) voxels):
   of batch 8192 on the env map); ``mnist`` at its defaults in-process on
   synthetic labels (the machine has no MNIST label file);
 - the offline path tracer (``render/offline_pathtracer.py``) on the
-  stand-in cloud at 800x800 with its default 32 bounces.
+  stand-in cloud at 800x800 with its default 32 bounces;
+- data parallel (``parallel/``) at world size 1 with NCCL on the card:
+  config 5's production frame through ``dp_train_banded_frame`` (the
+  packed DP render, K1 bf16) and config 4 as it ships through
+  ``dp_frame_step`` (K1 f32), each beside its single-device path
+  (``train_only_step`` -> ``bake`` -> ``render_banded``; ``frame_step``)
+  on the same draws; ``probe_dp_caps`` at 1080p; two gloo ranks on the
+  one card at a small cut; the CLI's ``--mesh`` frames under
+  ``torchrun``.
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
 (csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
@@ -89,14 +97,27 @@ one such frame at 32x32 at the train tests' bounds); the side workloads
 ``image_fit.train_step`` card vs CPU port, ``mnist`` whose train accuracy
 must pass 0.8); the offline path tracer (phase 15: 2 timed traces at
 800x800 after a warm-up, a profiled one, the card vs the CPU port at
-32x32 on the same uniforms). Launch counts are
+32x32 on the same uniforms); data parallel (phase 16: a and b inside
+phases 8 and 10 on their scenes and states -- each DP frame held to the
+single-device frame on one set of draws, then 2 rounds of (single, DP,
+DP, single) frames, the DP frames' K1 launches and their all_reduce and
+all_gather times from CUDA events; c: ``probe_dp_caps`` at world size 1
+over phase 8's pack against phase 8c's probes; d: two gloo ranks on the
+card, each its own process of ``parallel/job.py``, bitwise equal to
+each other and equal to world size 1 on the renders; e: ``torchrun
+--standalone --nproc-per-node 1 -m neuralradiancecaching_tpu_torch.cli
+progressive --mesh auto --frames 4`` and ``nrc-online --mesh 1 --frames
+4``, each its own process; f: the walks' branches no preset sets -- the
+NN-mode march split, the dense per-slot shade, the reference march's
+entry kill, the premultiplied env mode -- card vs CPU port). Launch counts are
 reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
 the card's name and power limit, the one before it the kernels' JSON
 record (K1 f32's launches are those of the config-4-preset frames, oct
 and dense/hash); the
-last line is {"ok": true, "device": {...}}.
+last line is {"ok": true, "device": {...}}. K1's launches in the record
+include the data-parallel frames' (phases 16a-b).
 """
 
 from __future__ import annotations
@@ -172,6 +193,7 @@ Q_SIDE, Q_TRAIN_STEPS, Q_GT_SPP, Q_QUERY_CAP = 256, 400, 64, 0.375
 # branches of render_banded held card against CPU: (sampler, cache on,
 # spp, packed, light transmittance mode)
 CLI_TIMEOUT = 600
+CLI_MODULE = ("-m", "neuralradiancecaching_tpu_torch.cli")
 BANDED_CASES = (("reference", False, 2, False, "field"),
                 ("collision", False, 1, False, "field"),
                 ("delta", False, 2, False, "field"),
@@ -197,9 +219,22 @@ MNIST_TRAIN_LABELS, MNIST_TEST_LABELS, MNIST_MIN_ACC = 10000, 2048, 0.8
 # the offline path tracer (phase 15) at the presets' 800x800 with
 # OfflinePTConfig's defaults and the JAX tests' sun, straight down
 OFFLINE_SUN, OFFLINE_FRAMES = (0.0, -1.0, 0.0), 2
+# the data-parallel paths (phase 16) at world size 1 with NCCL: the frames
+# in DP_TURNS rounds of (single device, DP, DP, single device) on fresh
+# draws, each DP frame held to the single-device one on one set of draws
+# (the train tests' bounds, mse within DP_MSE_REL: the same card, only the
+# atomic sums' order differs; the image at the render bound); two gloo
+# ranks on the one card at config 5's small cut in DP_SMALL_BAND-row bands
+# (a rank group's time limit DP_RANKS_TIMEOUT); the walks' new branches
+# card vs CPU port, the splits and the entry kill at WALK_SIDE^2 (their
+# packs act above 1024 lanes)
+DP_TURNS, DP_MSE_REL, DP_SMALL_BAND, DP_RANKS_TIMEOUT = 2, 1e-5, 6, 300
+WALK_SIDE = 48
 # the card's name and power limit, set once the card is found: every new
 # phase's summary line carries it
 CARD = ""
+# the data-parallel phases' results, logged once at the end
+DP_LOG: dict = {}
 
 
 def log(msg: str) -> None:
@@ -975,7 +1010,13 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
         log(f"K1 bf16 vs plain on real rows ({label}): max abs {abs_e:.3e} "
             f"max rel {rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
             f"{plain_f64:.3e}")
-    del pack, env_rgb, baked, feats, ev, qp, qd, qw, inv, rgb_p, trans_p
+    del baked, feats, ev, qp, qd, qw, inv, rgb_p, trans_p
+    torch.cuda.empty_cache()
+
+    # -- 16a, 16c. the production frame data-parallel, the per-shard probe --
+    dp_launches = dp_progressive(dev, scene, cfg, state, env_rgb, pack,
+                                 probes)
+    del pack, env_rgb
     torch.cuda.empty_cache()
 
     # -- 8h. the bench's quality legs on config 5's scene --------------------
@@ -987,8 +1028,8 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     for field_dtype in ("float32", "bfloat16"):
         progressive_small_vs_cpu(dev, field_dtype)
 
-    return k1_record("fused_mlp_bf16", launches, err, err_f64, k1_times,
-                     flop, nbytes), legs
+    return k1_record("fused_mlp_bf16", launches + dp_launches, err, err_f64,
+                     k1_times, flop, nbytes), legs
 
 
 def quality_legs(dev, scene, cfg, state) -> dict:
@@ -1328,6 +1369,8 @@ def preset_frames(dev, dens, env, params_he):
     launches_dense = dense_hash_frames(
         scene, state, c4, gen, batch, res, peak,
         {"frame": ms, "train half": train, "render half": render})
+    # -- 16b. the same frame data-parallel ----------------------------------
+    launches_dp = dp_preset(dev, scene, state, c4)
     profile_call("config 4 frame_step", lambda: frame.frame_step(
         state, scene, gen, c4))
     # the render half as the CLI's nrc-online renders it, banded, warm
@@ -1335,7 +1378,7 @@ def preset_frames(dev, dens, env, params_he):
     banded_frames("config 4", lambda: tiled.render_banded(
         state, scene, gen, c4, band_rows=band), band,
         statistics.median(render), peak_r)
-    return launches, err, err_f64, launches_dense
+    return launches, err, err_f64, launches_dense, launches_dp
 
 
 def dense_hash_config(c4):
@@ -1653,7 +1696,7 @@ def cli_runs() -> dict:
     frame (of the frames since the previous row; the scene bake
     excluded) and image mean."""
     from neuralradiancecaching_tpu_torch import config as cfg_mod
-    from neuralradiancecaching_tpu_torch.io import checkpoint, exr
+    from neuralradiancecaching_tpu_torch.io import checkpoint
     from neuralradiancecaching_tpu_torch.models import nrc
     root = REPO / "out" / "chip_smoke_cli"
     ck = root / "nrc_online" / "ck"
@@ -1670,45 +1713,9 @@ def cli_runs() -> dict:
             ("progressive", "progressive",
              ["progressive", "--frames", str(N_FRAMES), "--sync-every",
               "1"])]
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = {}
-    for name, image, argv in runs:
-        d = root / name
-        d.mkdir(parents=True, exist_ok=True)
-        metrics = d / "metrics.jsonl"
-        metrics.unlink(missing_ok=True)
-        sync()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "neuralradiancecaching_tpu_torch.cli",
-             *argv, "--out", str(d), "--metrics", str(metrics)],
-            cwd=REPO, env=env, capture_output=True, text=True,
-            timeout=CLI_TIMEOUT)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            log(f"  cli {name}: {line}")
-        check(proc.returncode == 0, f"cli {' '.join(argv)} exited "
-              f"{proc.returncode}: {proc.stderr[-3000:]}")
-        img = exr.read_exr(str(d / f"{image}.exr"))
-        (d / f"{image}.exr").unlink()
-        rows = [json.loads(line) for line in open(metrics)]
-        mean = float(img.mean())
-        check(img.ndim == 3 and img.shape[2] == 3
-              and bool(np.isfinite(img).all()), f"cli {name}: image "
-              f"{img.shape} not finite")
-        check(1e-3 < mean < 1e3, f"cli {name}: image mean {mean}")
-        frame_s = [row["frame_s"] for row in rows]
-        peaks = [row["peak_gib"] for row in rows]
-        out[name] = {"size": f"{img.shape[1]}x{img.shape[0]}",
-                     "frame_ms": [t * 1e3 for t in frame_s],
-                     "peak_gib": peaks, "mean": mean, "process_s": wall,
-                     "stdout": proc.stdout}
-        log(f"cli {name} ({' '.join(argv[1:]) or 'defaults'}) "
-            f"{img.shape[1]}x{img.shape[0]}: frame ms "
-            f"{[round(t * 1e3, 3) for t in frame_s]}, peak memory per frame "
-            f"{[round(p, 3) for p in peaks]} GiB, image mean {mean:.5f}; "
-            f"process {wall:.1f} s (start-up and scene bake included)")
+    out = {name: run_cli(name, image, [sys.executable, *CLI_MODULE, *argv],
+                         root)
+           for name, image, argv in runs}
     check(f"resumed from {ck}" in out["nrc_online_resume"]["stdout"],
           "the resumed run did not report its resume")
     like = nrc.init_state(torch.Generator().manual_seed(0),
@@ -1717,6 +1724,50 @@ def cli_runs() -> dict:
     check(step == N_FRAMES + 1, f"the resumed run's Adam counter is {step}, "
           f"not {N_FRAMES + 1}: the resume did not load")
     return out
+
+
+def run_cli(name: str, image: str, cmd: list, root: Path) -> dict:
+    """One CLI run in its own process (``cmd``, to which the output
+    directory ``root / name`` and a metrics file are added): it must exit
+    0 with a finite image of a plausible mean (read back, then deleted)
+    and its metrics rows. Returns its frame times, the peak memory of
+    each metrics row, the image mean, the process wall time and its
+    stdout."""
+    from neuralradiancecaching_tpu_torch.io import exr
+    d = root / name
+    d.mkdir(parents=True, exist_ok=True)
+    metrics = d / "metrics.jsonl"
+    metrics.unlink(missing_ok=True)
+    sync()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, "--out", str(d), "--metrics", str(metrics)],
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  cli {name}: {line}")
+    check(proc.returncode == 0, f"cli {' '.join(cmd)} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    img = exr.read_exr(str(d / f"{image}.exr"))
+    (d / f"{image}.exr").unlink()
+    rows = [json.loads(line) for line in open(metrics)]
+    mean = float(img.mean())
+    check(img.ndim == 3 and img.shape[2] == 3
+          and bool(np.isfinite(img).all()), f"cli {name}: image "
+          f"{img.shape} not finite")
+    check(1e-3 < mean < 1e3, f"cli {name}: image mean {mean}")
+    frame_s = [row["frame_s"] for row in rows]
+    peaks = [row["peak_gib"] for row in rows]
+    sub = cmd.index(CLI_MODULE[1]) + 1
+    log(f"cli {name} ({' '.join(cmd[sub + 1:]) or 'defaults'}) "
+        f"{img.shape[1]}x{img.shape[0]}: frame ms "
+        f"{[round(t * 1e3, 3) for t in frame_s]}, peak memory per frame "
+        f"{[round(p, 3) for p in peaks]} GiB, image mean {mean:.5f}; "
+        f"process {wall:.1f} s (start-up and scene bake included) [{CARD}]")
+    return {"size": f"{img.shape[1]}x{img.shape[0]}",
+            "frame_ms": [t * 1e3 for t in frame_s], "peak_gib": peaks,
+            "mean": mean, "process_s": wall, "stdout": proc.stdout}
 
 
 def image_fit_run() -> dict:
@@ -1906,6 +1957,414 @@ def offline_trace(dev, dens) -> dict:
               f"the card's offline trace ({name}) disagrees with the CPU "
               f"port")
     return {"ms": ms, "peak_gib": peak / 2**30}
+
+
+def same_frame(label: str, ref, out, lr: float) -> dict:
+    """The data-parallel frame against the single-device one on the same
+    draws (one card: only the atomic sums' order differs): mse within
+    DP_MSE_REL, MLP parameters within SMALL_PARAM_TOL, hash entries >=
+    SMALL_HASH_FRAC within it and all within 2 lr, the image at the render
+    bound. ref/out: (state, image, mse)."""
+    (st_r, img_r, mse_r), (st_o, img_o, mse_o) = ref, out
+    mse_rel = abs(float(mse_o) - float(mse_r)) / abs(float(mse_r))
+    p_err = max(float((st_o.mlp_params[k] - st_r.mlp_params[k]).abs().max())
+                for k in st_r.mlp_params)
+    h_diff = (st_o.hash_table - st_r.hash_table).abs()
+    h_frac = float((h_diff <= SMALL_PARAM_TOL).float().mean())
+    got, ref_img = img_o.float().cpu().numpy(), img_r.float().cpu().numpy()
+    ok = np.all(np.abs(got - ref_img) <= 1e-4 + 1e-3 * np.abs(ref_img),
+                axis=-1)
+    rel = abs(got.mean() - ref_img.mean()) / abs(ref_img.mean())
+    res = {"pixels_ok": float(ok.mean()), "mean_rel": float(rel),
+           "max_abs": float(np.abs(got - ref_img).max()),
+           "mse_rel": mse_rel, "mlp_max_abs": p_err, "hash_frac": h_frac,
+           "hash_max_abs": float(h_diff.max())}
+    log(f"{label}, data parallel vs single device on the same draws: "
+        + json.dumps(res))
+    check(bool(np.isfinite(got).all()) and ok.mean() >= SMALL_FRAC_OK
+          and rel <= SMALL_REL_MEAN, f"{label}: the DP image disagrees")
+    check(mse_rel <= DP_MSE_REL and p_err <= SMALL_PARAM_TOL,
+          f"{label}: the DP train step disagrees")
+    check(h_frac >= SMALL_HASH_FRAC and float(h_diff.max()) <= 2 * lr
+          * 1.0001, f"{label}: the DP hash-table step disagrees")
+    return res
+
+
+def dp_in_turns(label: str, draw, single, data_parallel, counter: str,
+                lr: float) -> dict:
+    """A data-parallel path at world size 1 beside its single-device path
+    (phases 16a-b): both on one set of draws (held equal by
+    :func:`same_frame`; also the warm-up), then DP_TURNS rounds of
+    (single, DP, DP, single) frames, each on fresh draws and ending in a
+    synchronize; the DP frames' K1 launches (the count set to 0 just
+    before each DP frame, read just after) and their collectives' own
+    times (CUDA events around the all_reduce and the all_gather)."""
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp
+    from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
+    d = draw()
+    eq = same_frame(label, single(d), data_parallel(d), lr)
+    ms = {"single": [], "dp": []}
+    coll: dict[str, list] = {}
+    launches = 0
+    for _ in range(DP_TURNS):
+        for which in ("single", "dp", "dp", "single"):
+            d = draw()
+            sync()
+            if which == "dp":
+                setattr(fused_mlp, counter, 0)
+                dp.COLLECTIVE_EVENTS = []
+            t0 = time.perf_counter()
+            (data_parallel if which == "dp" else single)(d)
+            sync()
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+            if which == "dp":
+                launches += getattr(fused_mlp, counter)
+                for name, s, e in dp.COLLECTIVE_EVENTS:
+                    coll.setdefault(name, []).append(s.elapsed_time(e))
+                dp.COLLECTIVE_EVENTS = None
+    n_dp = 2 * DP_TURNS
+    out = {"single_ms": ms["single"], "dp_ms": ms["dp"],
+           "single_median_ms": statistics.median(ms["single"]),
+           "dp_median_ms": statistics.median(ms["dp"]),
+           "collective_ms": coll, "k1_launches": launches,
+           "equality": eq}
+    log(f"{label} in turns (single, DP, DP, single) x {DP_TURNS}: single "
+        f"{[round(t, 3) for t in ms['single']]} ms, median "
+        f"{out['single_median_ms']:.3f}; DP "
+        f"{[round(t, 3) for t in ms['dp']]} ms, median "
+        f"{out['dp_median_ms']:.3f}; collectives (ms per call) "
+        + ", ".join(f"{k} {[round(v, 4) for v in vs]}"
+                    for k, vs in coll.items())
+        + f"; K1 {counter} launches in the {n_dp} DP frames {launches} "
+        f"[{CARD}]")
+    check(launches >= n_dp, f"{label}: K1 launched {launches} times in "
+          f"{n_dp} DP frames")
+    check(coll.get("all_reduce") and coll.get("all_gather"),
+          f"{label}: no collective ran")
+    DP_LOG[label] = out
+    return out
+
+
+def dp_progressive(dev, scene, cfg, state, env_rgb, pack, probes) -> int:
+    """Config 5's production frame at 1920x1080 through
+    ``dp_train_banded_frame`` at world size 1 with NCCL (phase 16a: the
+    packed DP render, K1 bf16) beside ``train_only_step`` -> ``bake`` ->
+    ``render_banded`` on the same draws, in turns; then ``probe_dp_caps``
+    at world size 1 over the same pack against phase 8c's single-device
+    probes (phase 16c). Returns the DP frames' K1 bf16 launches."""
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
+    from neuralradiancecaching_tpu_torch.parallel import make_mesh
+    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
+                                                        targets, tiled)
+    mesh = make_mesh(1)
+    check(mesh.backend == "nccl" and mesh.device == dev,
+          f"mesh {mesh.backend} on {mesh.device}")
+    n_bands_p, band_n = pack.ro_p.shape[:2]
+    gen = torch.Generator(device=dev).manual_seed(300)
+
+    def draw():
+        return (targets.draw_train_uniforms(cfg, gen, dev),
+                [pathtrace.draw_path_uniforms(cfg, band_n, True, gen, dev)
+                 for _ in range(n_bands_p)])
+
+    def single(d):
+        st, mse = frame.train_only_step(state, scene, None, cfg,
+                                        train_uniforms=d[0])
+        img = tiled.render_banded(st, scene, None, cfg, BAND_ROWS,
+                                  env_rgb=env_rgb, baked=nrc.bake(st, cfg),
+                                  pack=pack, uniforms=d[1])
+        return st, img, mse
+
+    def data_parallel(d):
+        st, img, mse, _ = dp.dp_train_banded_frame(
+            state, scene, None, cfg, mesh, BAND_ROWS, env_rgb=env_rgb,
+            pack=pack, jitter=d[0].jitter, train_uniforms=[d[0]],
+            uniforms=d[1])
+        return st, img, mse
+
+    res = dp_in_turns(f"config 5 dp_train_banded_frame {P_WIDTH}x"
+                      f"{P_HEIGHT}", draw, single, data_parallel,
+                      "LAUNCHES_BF16", cfg.mrhe.learning_rate)
+
+    # -- 16c. the per-shard cap probe at world size 1 -----------------------
+    sync()
+    t0 = time.perf_counter()
+    cfg_t, rep = dp.probe_dp_caps(scene, cfg, 1, band_rows=BAND_ROWS,
+                                  pack=pack)
+    sync()
+    probe = {"seconds": time.perf_counter() - t0,
+             "query_frac": rep.query_frac.tolist(),
+             "event_mean": rep.event_mean.tolist(),
+             "live_frac": rep.live_frac.tolist(),
+             "query_cap": rep.query_cap, "shade_cap": rep.shade_cap,
+             "phase_8c": {k: probes[k] for k in (
+                 "qfrac", "live_frac", "ev_mean", "ev0_mean",
+                 "query_cap_fraction", "shade_cap_fraction")}}
+    log(f"probe_dp_caps at world size 1 over the pack: {json.dumps(probe)}")
+    # one shard is the frame: the exact live fraction is phase 8c's, the
+    # sampled query and event means match its own (other draws) within
+    # their spread, and the DP shade cap also covers slot 0
+    check(abs(rep.live_frac[0] - probes["live_frac"]) <= 1e-6,
+          "probe_dp_caps' live fraction differs from the frame's")
+    check(abs(rep.query_frac[0] - probes["qfrac"])
+          <= 0.05 * probes["qfrac"] + 0.005
+          and abs(rep.event_mean[0] - probes["ev_mean"])
+          <= 0.05 * probes["ev_mean"] + 0.005,
+          "probe_dp_caps' fractions stray from phase 8c's probes")
+    check(cfg_t.render.shade_cap_fraction >= probes["shade_cap_fraction"],
+          "probe_dp_caps' shade cap is below the single-device one")
+    DP_LOG["probe_dp_caps 1080p"] = probe
+    return res["k1_launches"]
+
+
+def dp_preset(dev, scene, state, c4) -> int:
+    """Config 4 as it ships at 800x800 through ``dp_frame_step`` at world
+    size 1 with NCCL (phase 16b: the reference sampler's train batch and
+    the cached render, K1 f32) beside ``frame_step`` on the same draws, in
+    turns. Returns the DP frames' K1 f32 launches."""
+    from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
+    from neuralradiancecaching_tpu_torch.parallel import make_mesh
+    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
+                                                        targets)
+    mesh = make_mesh(1)
+    gen = torch.Generator(device=dev).manual_seed(400)
+    n_pix = PRESET_SIDE * PRESET_SIDE
+
+    def draw():
+        return (targets.draw_train_uniforms(c4, gen, dev),
+                pathtrace.draw_path_uniforms(c4, n_pix, True, gen, dev))
+
+    def single(d):
+        st, out = frame.frame_step(state, scene, None, c4,
+                                   train_uniforms=d[0], uniforms=d[1])
+        return st, out.image, out.mse
+
+    def data_parallel(d):
+        return dp.dp_frame_step(state, scene, None, c4, mesh,
+                                jitter=d[0].jitter, train_uniforms=[d[0]],
+                                uniforms=[d[1]])
+
+    res = dp_in_turns(f"config 4 dp_frame_step {PRESET_SIDE}x{PRESET_SIDE}",
+                      draw, single, data_parallel, "LAUNCHES",
+                      c4.mrhe.learning_rate)
+    return res["k1_launches"]
+
+
+def dp_two_ranks(dev) -> None:
+    """Two gloo ranks on the one card (phase 16d; NCCL refuses two ranks on
+    one device), each its own process of ``parallel/job.py``: config 5's
+    small cut (64x60 in 6-row bands, so the height divides into 2 ranks x
+    6 rows; caps off, so no cap binds at either world size) through
+    ``dp_train_banded_frame``, ``dp_render_banded_packed`` and
+    ``dp_render_banded``, and config 4's through ``dp_frame_step``. Every
+    output bitwise equal on both ranks; the two renders from the global
+    per-band draws equal to world size 1's (NCCL, this process) at the
+    render bound."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
+    from neuralradiancecaching_tpu_torch.parallel import make_mesh, spawn
+    from neuralradiancecaching_tpu_torch.render import pathtrace, tiled
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    r = dataclasses.replace
+    w, h, band = 64, 60, DP_SMALL_BAND
+    c5 = progressive_config(w, h, small=True)
+    c5 = r(c5, render=r(c5.render, query_cap_fraction=1.0,
+                        shade_cap_fraction=float(c5.path.max_bounces),
+                        live_pack_fraction=0.75))
+    c4 = preset_config("config4", small=True)
+    rng = np.random.default_rng(0)
+    dens = rng.random(c5.volume.grid_shape, dtype=np.float32) * 0.5
+    env = assets.synthesize_sky(32, 64)
+
+    def state_np(cfg, seed):
+        st = nrc.init_state(torch.Generator().manual_seed(seed), cfg,
+                            device="cpu")
+        st = dataclasses.replace(st, mlp_params=he_params(
+            cfg.mlp, torch.Generator().manual_seed(seed + 1), "cpu"))
+        return {f.name: to_numpy(getattr(st, f.name))
+                for f in dataclasses.fields(st)}
+
+    st5, st4 = state_np(c5, 2), state_np(c4, 4)
+    scene5 = scn.make_scene(c5, dens, env, device=dev)
+    pack = tiled.frame_live_pack(scene5, c5, band, multiple_of=2)
+    n_p, band_n = pack.ro_p.shape[:2]
+    g = torch.Generator().manual_seed(7)
+    pu = [pathtrace.draw_path_uniforms(c5, band_n, True, g)
+          for _ in range(n_p)]
+    bu = [pathtrace.draw_path_uniforms(c5, band * w, True, g)
+          for _ in range(h // band)]
+    pack_cpu = to_device(pack, "cpu")
+    steps = [dict(name="c5_train_frame", fn="dp_train_banded_frame", cfg=c5,
+                  state=st5, seed=11,
+                  kwargs=dict(band_rows=band, pack=pack_cpu)),
+             dict(name="c4_frame", fn="dp_frame_step", cfg=c4, state=st4,
+                  seed=12),
+             dict(name="c5_packed", fn="dp_render_banded_packed", cfg=c5,
+                  state=st5, kwargs=dict(band_rows=band, pack=pack_cpu,
+                                         uniforms=pu)),
+             dict(name="c5_banded", fn="dp_render_banded", cfg=c5, state=st5,
+                  kwargs=dict(band_rows=band, uniforms=bu))]
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        torch.save(dict(density=dens, env=env, steps=steps), d / "job.pt")
+        sync()
+        t0 = time.perf_counter()
+        spawn(["-m", "neuralradiancecaching_tpu_torch.parallel.job",
+               str(d / "job.pt"), str(d), "--device", str(dev), "--backend",
+               "gloo"], 2, d / "group", env={"PYTHONPATH": str(REPO)},
+              timeout=DP_RANKS_TIMEOUT)
+        wall = time.perf_counter() - t0
+        r0, r1 = (torch.load(d / f"rank{k}.pt", weights_only=False)
+                  for k in range(2))
+    finally:
+        for f in sorted(d.rglob("*"), reverse=True):
+            f.unlink() if f.is_file() else f.rmdir()
+        d.rmdir()
+    for name in r0:
+        a, b = flat_tensors(r0[name]), flat_tensors(r1[name])
+        check(len(a) == len(b) and all(torch.equal(x, y)
+                                       for x, y in zip(a, b)),
+              f"two ranks: {name} differs between the ranks")
+    for name, out in (("c4_frame", r0["c4_frame"][1]),
+                      ("c5_train_frame", r0["c5_train_frame"][1])):
+        check(bool(torch.isfinite(out).all()) and float(out.mean()) > 0.0,
+              f"two ranks: {name} image not finite")
+    mesh = make_mesh(1)
+    st = nrc.state_from_numpy(st5, dev)
+    ref = {"c5_packed": dp.dp_render_banded_packed(
+               st, scene5, None, c5, mesh, band, pack=pack,
+               uniforms=to_device(pu, dev)),
+           "c5_banded": dp.dp_render_banded(
+               st, scene5, None, c5, mesh, band,
+               uniforms=to_device(bu, dev))}
+    res = {"process_s": wall}
+    for name, img in ref.items():
+        got, want = r0[name].numpy(), img.cpu().numpy()
+        ok = np.all(np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want),
+                    axis=-1)
+        rel = abs(got.mean() - want.mean()) / abs(want.mean())
+        res[name] = {"pixels_ok": float(ok.mean()), "mean_rel": float(rel),
+                     "max_abs": float(np.abs(got - want).max())}
+        check(ok.mean() >= SMALL_FRAC_OK and rel <= SMALL_REL_MEAN,
+              f"two ranks: {name} differs from world size 1's")
+    log(f"two gloo ranks on one card ({w}x{h} config 5 in {band}-row "
+        f"bands, 32x32 config 4): every output bitwise equal on both "
+        f"ranks; the renders vs world size 1: {json.dumps(res)} [{CARD}]")
+    DP_LOG["two ranks"] = res
+
+
+def to_numpy(x):
+    """A tensor, a dict of them or None as numpy."""
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    return None if x is None else x.cpu().numpy()
+
+
+def flat_tensors(x) -> list:
+    """The tensors of a job output (tuples, dicts) in a fixed order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in flat_tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in flat_tensors(v)]
+    return []
+
+
+def walk_branches_small_vs_cpu(dev) -> None:
+    """The card vs the CPU port on the walks' branches no preset sets (phase
+    16f), the same draws (drawn on the CPU): the NN-mode march split of the
+    collision and delta walks and the reference march's entry kill through
+    ``trace_path`` at WALK_SIDE^2 (their packs act above 1024 lanes; per
+    lane at the render bound, >= 99% of lanes), the dense per-slot shade of
+    both and the premultiplied env mode through ``render_only_step`` at
+    32x32 (per pixel and the mean)."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import frame, pathtrace
+    from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
+    r = dataclasses.replace
+    base = slice_config(32, 32, small=True)
+    branches = (
+        ("nn_split_collision", "walk", {"path": {"coll_phase1_steps": 2}}),
+        ("nn_split_delta", "walk", {"path": {"sampler": "delta",
+                                             "coll_phase1_steps": 2}}),
+        ("dense_collision", "render", {"path": {"coll_shade_cap": 0.0}}),
+        ("dense_delta", "render", {"path": {"sampler": "delta",
+                                            "coll_shade_cap": 0.0}}),
+        ("entry_kill", "walk", {"path": {"sampler": "reference",
+                                         "march_entry_fraction": 0.25}}),
+        ("premultiplied", "render", {"env_map": {
+            "in_scatter_mode": "mc", "transmittance_mode": "premultiplied"}}))
+    rng = np.random.default_rng(0)
+    dens = rng.random(base.volume.grid_shape, dtype=np.float32) * 0.5
+    env = assets.synthesize_sky(32, 64)
+    state = nrc.init_state(torch.Generator().manual_seed(2), base,
+                           device="cpu")
+    state = dataclasses.replace(state, mlp_params=he_params(
+        base.mlp, torch.Generator().manual_seed(3), "cpu"))
+    res = {}
+    for name, kind, change in branches:
+        cfg = base
+        for section, kw in change.items():
+            cfg = r(cfg, **{section: r(getattr(cfg, section), **kw)})
+        g = torch.Generator().manual_seed(13)
+        side = WALK_SIDE if kind == "walk" else 32
+        u = pathtrace.draw_path_uniforms(cfg, side * side, True, g)
+        outs = []
+        for d in ("cpu", dev):
+            sc = scn.make_scene(cfg, dens, env, device=d)
+            if kind == "render":
+                outs.append(frame.render_only_step(
+                    state_to(state, d), sc, None, cfg,
+                    uniforms=to_device(u, d)).cpu().numpy().reshape(-1, 3))
+            else:
+                ro, rd = camera.pixel_rays(sc.camera, side, side)
+                p = pathtrace.trace_path(sc, cfg, ro, rd, None, use_nn=True,
+                                         uniforms=to_device(u, d))
+                outs.append(np.concatenate(
+                    [t.cpu().numpy().reshape(side * side, -1) for t in p],
+                    axis=1))
+        sync()
+        ref, got = outs
+        ok = np.all(np.abs(got - ref) <= 1e-4 + 1e-3 * np.abs(ref), axis=-1)
+        rel = abs(got.mean() - ref.mean()) / abs(ref.mean())
+        res[name] = {"ok": float(ok.mean()), "mean_rel": float(rel)}
+        check(bool(np.isfinite(got).all()) and ok.mean()
+              >= (0.99 if kind == "walk" else SMALL_FRAC_OK)
+              and (kind == "walk" or rel <= SMALL_REL_MEAN),
+              f"the card's {name} branch disagrees with the CPU port")
+    log("card vs CPU port, the walks' new branches: " + json.dumps(res))
+
+
+def dp_cli_runs() -> dict:
+    """The CLI's data-parallel frames as a user runs them (phase 16e), each
+    in its own process at its default size: ``torchrun --standalone
+    --nproc-per-node 1 -m neuralradiancecaching_tpu_torch.cli progressive
+    --mesh auto --frames 4`` (NCCL, the per-shard cap probe, the packed DP
+    frame) and ``python -m neuralradiancecaching_tpu_torch.cli nrc-online
+    --mesh 1 --frames 4`` (a group of one, the striped banded DP frame).
+    Each must exit 0 with a finite image and a metrics row per frame."""
+    root = REPO / "out" / "chip_smoke_cli"
+    out = {
+        "progressive_mesh": run_cli(
+            "progressive_mesh", "progressive",
+            ["torchrun", "--standalone", "--nproc-per-node", "1",
+             *CLI_MODULE, "progressive", "--mesh", "auto", "--frames",
+             str(N_FRAMES), "--sync-every", "1"], root),
+        "nrc_online_mesh": run_cli(
+            "nrc_online_mesh", "nrc_online",
+            [sys.executable, *CLI_MODULE, "nrc-online", "--mesh", "1",
+             "--frames", str(N_FRAMES)], root)}
+    check(all(len(run["frame_ms"]) == N_FRAMES for run in out.values()),
+          "a DP CLI run logged another number of frames")
+    check("probe-caps: query_cap=" in out["progressive_mesh"]["stdout"],
+          "the DP progressive run did not probe its caps")
+    DP_LOG["cli"] = {k: {f: v for f, v in run.items() if f != "stdout"}
+                     for k, run in out.items()}
+    return out
 
 
 def main() -> int:
@@ -2228,12 +2687,13 @@ def main() -> int:
 
     # -- 9-10. configs 3 and 4 as they ship --------------------------------
     torch.cuda.empty_cache()
-    launches_preset, err, err_f64, launches_dense = preset_frames(
-        dev, dens, env, params_he)
+    launches_preset, err, err_f64, launches_dense, launches_dp = \
+        preset_frames(dev, dens, env, params_he)
     k1_err, k1_err_f64 = max(k1_err, err), max(k1_err_f64, err_f64)
     log(f"K1 f32 launches: {launches_online} on the 4 collision online "
         f"frames, {launches_preset} on the 4 config-4-preset frames, "
-        f"{launches_dense} on the {DENSE_FRAMES} dense/hash config-4 frames")
+        f"{launches_dense} on the {DENSE_FRAMES} dense/hash config-4 frames, "
+        f"{launches_dp} on the {2 * DP_TURNS} data-parallel config-4 frames")
 
     # -- 11. the card vs the CPU port: the oracle and config 4's frame, and
     #    config 4's frame with the dense bake and the hash train encode ------
@@ -2256,6 +2716,16 @@ def main() -> int:
     # -- 15. the offline path tracer ----------------------------------------
     torch.cuda.empty_cache()
     offline = offline_trace(dev, dens)
+
+    # -- 16d-f. two gloo ranks on the card, the walks' new branches card vs
+    #    CPU, the CLI's data-parallel frames under torchrun -----------------
+    torch.cuda.empty_cache()
+    dp_two_ranks(dev)
+    walk_branches_small_vs_cpu(dev)
+    dp_cli_runs()
+    log("dp: " + json.dumps(DP_LOG))
+    from neuralradiancecaching_tpu_torch.parallel import close_mesh
+    close_mesh()
     log("quality: " + json.dumps(legs))
     log("cli: " + json.dumps({k: {f: v for f, v in run.items()
                                   if f != "stdout"}
@@ -2265,8 +2735,9 @@ def main() -> int:
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        k1_record("fused_mlp", launches_preset + launches_dense, k1_err,
-                  k1_err_f64, k1_times, k1_flop, k1_bytes),
+        k1_record("fused_mlp", launches_preset + launches_dense
+                  + launches_dp, k1_err, k1_err_f64, k1_times, k1_flop,
+                  k1_bytes),
         k1_bf16,
         {"name": "matmul", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/matmul.cu",

@@ -13,9 +13,10 @@ caller-supplied uniforms.
 
 Ported so far: the online frame (``render.frame.frame_step``: the train
 batch, the train step with guarded Adam, and the cached render) with the
-reference, collision and delta samplers and every light mode but the
-premultiplied one, the unbiased ground-truth oracle, and config 5's banded
-progressive frame (``render.tiled``); the cache query runs the
+reference, collision and delta samplers and every light mode, the
+unbiased ground-truth oracle, config 5's banded progressive frame
+(``render.tiled``), the CLI's workloads, and data parallel across cards
+(``parallel``: torch.distributed, one process per card); the cache query runs the
 hand-written CUDA kernel ``csrc/fused_mlp.cu``, and the generic fp32
 matrix product is ``csrc/matmul.cu`` (``ops.matmul``). Both are built at
 first use by :mod:`.kernels`.

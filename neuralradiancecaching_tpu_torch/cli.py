@@ -23,8 +23,18 @@ excluded).
 
 ``mnist`` reads its idx label files from the checkout's ``data/mnist/``
 (``io/assets.py:MNIST_DIRS``; none ships, nothing is downloaded) and exits
-with an error without them. Not here yet: the data-parallel ``--mesh`` and
-``--probe-caps``.
+with an error without them.
+
+Data parallel (``--mesh off|auto|N`` on ``nrc-online`` and
+``progressive``): one process per card, launched by ``torchrun``; the
+ranks shard the rays (``parallel/data_parallel.py``) and rank 0 alone
+writes the EXR, PNG, JSONL and checkpoints:
+
+  torchrun --nproc-per-node 4 -m neuralradiancecaching_tpu_torch.cli \
+      progressive --mesh auto
+
+``--mesh N`` must equal the launcher's world size (exit 2 otherwise);
+NCCL joins the ranks on the cards, gloo with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
 
 import numpy as np
@@ -40,6 +51,8 @@ import torch
 from neuralradiancecaching_tpu_torch import config as cfg_mod
 from neuralradiancecaching_tpu_torch.io import assets, checkpoint, exr
 from neuralradiancecaching_tpu_torch.models import image_fit, mnist_mlp, nrc
+from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
+from neuralradiancecaching_tpu_torch.parallel import mesh as mesh_mod
 from neuralradiancecaching_tpu_torch.render import frame as frame_mod
 from neuralradiancecaching_tpu_torch.render import pathtrace, tiled
 from neuralradiancecaching_tpu_torch.scene import camera as cam_mod
@@ -91,19 +104,50 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed)
 
 
-def _band_rows(width: int, height: int) -> int | None:
+def _band_rows(width: int, height: int, n_dev: int = 1) -> int | None:
     """Band height for tiled rendering of frames above 512x512: the first
     candidate that divides the height (30-row bands measured fastest at
     1080p under the JAX package's packed pipeline on the TPU; 800 rows take
     32). The threshold is the JAX CLI's; PERF.md records what banding costs
-    on the card."""
+    on the card. With n_dev ranks the striped DP renders need height %
+    (n_dev * rows) == 0 (1080p on 8 ranks: 27-row bands; 800 rows: 25)."""
     if width * height <= 512 * 512:
         return None
     for rows in (30, 54, 108, 64, 32, 27, 25, 20, 16, 10, 9, 8, 5, 4, 3,
                  2, 1):
-        if height % rows == 0:
+        if height % (n_dev * rows) == 0:
             return rows
     return None
+
+
+def _mesh_from_arg(mesh_arg: str | None, device: torch.device):
+    """--mesh off|auto|N -> the data-parallel Mesh, or None when off. 'auto'
+    takes the launcher's world size (1 without one), so the same command
+    runs on one card and under torchrun on several; N must equal it."""
+    if not mesh_arg or mesh_arg == "off":
+        return None
+    size = mesh_mod.world_size()
+    if mesh_arg != "auto" and int(mesh_arg) != size:
+        print(f"--mesh {mesh_arg} needs {mesh_arg} ranks; the launcher "
+              f"started {size} (torchrun --nproc-per-node {mesh_arg})",
+              file=sys.stderr)
+        raise SystemExit(2)
+    return mesh_mod.make_mesh(size, device)
+
+
+class _Rank0:
+    """What only rank 0 of a mesh does (prints, files); everything without
+    a mesh."""
+
+    def __init__(self, mesh):
+        self.on = mesh is None or mesh.rank == 0
+
+    def print(self, *a) -> None:
+        if self.on:
+            print(*a)
+
+    def logger(self, path: str | None) -> MetricsLogger:
+        return MetricsLogger(path if self.on else None)
 
 
 def _render_frame(state, scene, gen, cfg) -> torch.Tensor:
@@ -193,7 +237,9 @@ def cmd_pathtrace(args) -> None:
 
 
 def cmd_nrc_online(args) -> None:
-    dev = args.device
+    mesh = _mesh_from_arg(args.mesh, args.device)
+    dev = mesh.device if mesh is not None else args.device
+    r0 = _Rank0(mesh)
     cfg = _with_aspect(cfg_mod.nrc_online_config(args.width, args.height),
                        args.width, args.height)
     cfg_base = cfg  # pre-override config: what a default-run checkpoint
@@ -214,19 +260,26 @@ def cmd_nrc_online(args) -> None:
             state = checkpoint.load(
                 args.resume, state,
                 expect_config_hash=checkpoint.config_hash(cfg_base))
-            print(f"note: checkpoint config matches the default sampler; "
-                  f"evaluating under --sampler {args.sampler}")
-        print(f"resumed from {args.resume}")
+            r0.print(f"note: checkpoint config matches the default sampler; "
+                     f"evaluating under --sampler {args.sampler}")
+        r0.print(f"resumed from {args.resume}")
 
-    log = MetricsLogger(args.metrics)
+    log = r0.logger(args.metrics)
     img = None
-    big = _band_rows(args.width, args.height) is not None
+    band = _band_rows(args.width, args.height,
+                      mesh.size if mesh is not None else 1)
+    big = band is not None
     _sync(dev)
     _start_frames(dev)
     for i in range(args.frames):
         t0 = time.perf_counter()
         gen = _generator(dev, args.seed * 7919 + i)
-        if big:
+        if mesh is not None and big:
+            state, img, mse, _ = dp.dp_train_banded_frame(
+                state, scene, gen, cfg, mesh, band_rows=band)
+        elif mesh is not None:
+            state, img, mse = dp.dp_frame_step(state, scene, gen, cfg, mesh)
+        elif big:
             # large frames: a train pass, then the banded render
             state, mse = frame_mod.train_only_step(state, scene, gen, cfg)
             img = _render_frame(state, scene, gen, cfg)
@@ -240,19 +293,46 @@ def cmd_nrc_online(args) -> None:
                       **_peak(dev))
         # reference logs MSE every 25 frames (src/main.cpp:220-224)
         if i % max(args.frames // 8, 1) == 0 or i == args.frames - 1:
-            print(f"frame {i}: mse={row['mse']:.5f} {dt:.3f}s")
-    if img is not None:
+            r0.print(f"frame {i}: mse={row['mse']:.5f} {dt:.3f}s")
+    if img is not None and r0.on:
         _save_frame(args.out, "nrc_online", img)
-    if args.checkpoint:
+    if args.checkpoint and r0.on:
         checkpoint.save(args.checkpoint, state,
                         metadata={"frames": args.frames, "seed": args.seed,
                                   "config_hash": checkpoint.config_hash(cfg)})
         print(f"checkpoint -> {args.checkpoint}")
 
 
+def _probe_caps(args, scene, cfg, mesh, band, live_pack, r0):
+    """--probe-caps on a mesh, at each pose: 'auto' sizes the query and
+    shade caps to the worst shard (dp.probe_dp_caps, drop-free by
+    construction) rounded up to 1/16 so they stay put across poses;
+    'uncapped' turns the caps off; 'off' keeps the config's."""
+    if args.probe_caps == "auto" and cfg.render.use_nn \
+            and pathtrace.shade_deferred(cfg):
+        cfg_t, rep = dp.probe_dp_caps(scene, cfg, mesh.size, band_rows=band,
+                                      pack=live_pack)
+        qc = min(1.0, float(np.ceil(cfg_t.render.query_cap_fraction
+                                    / 0.0625) * 0.0625))
+        sc = float(np.ceil(cfg_t.render.shade_cap_fraction / 0.0625)
+                   * 0.0625)
+        r0.print(f"probe-caps: query_cap={qc} shade_cap={sc} (per-shard "
+                 f"worst: q={rep.query_frac.max():.4f} "
+                 f"ev={rep.event_mean.max():.4f})")
+    elif args.probe_caps == "uncapped":
+        qc, sc = 1.0, float(cfg.path.max_bounces)
+    else:
+        return cfg
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, query_cap_fraction=qc, shade_cap_fraction=sc))
+
+
 def cmd_progressive(args) -> None:
     """Config 5: progressive accumulation along a camera orbit."""
-    dev = args.device
+    mesh = _mesh_from_arg(args.mesh, args.device)
+    dev = mesh.device if mesh is not None else args.device
+    n_dev = mesh.size if mesh is not None else 1
+    r0 = _Rank0(mesh)
     cfg = cfg_mod.progressive_1080p_config()
     cfg = _with_aspect(dataclasses.replace(cfg, render=dataclasses.replace(
         cfg.render, width=args.width, height=args.height)),
@@ -260,17 +340,17 @@ def cmd_progressive(args) -> None:
     cfg = _with_sampler(cfg, args.sampler)
     scene = _build_scene(cfg, dev)
     state = nrc.init_state(_generator(dev, args.seed), cfg, device=dev)
-    log = MetricsLogger(args.metrics)
+    log = r0.logger(args.metrics)
 
     # the camera moves every `move_every` frames; progressive 1-spp
     # accumulation resets on movement. The accumulation stays on the
     # device, the direct-env composite and the live-ray pack are hoisted
     # per camera pose, the bake re-runs every --bake-every frames, and the
     # host synchronizes once per --sync-every frames.
-    band = args.band_rows or _band_rows(args.width, args.height)
-    if band and args.height % band:
+    band = args.band_rows or _band_rows(args.width, args.height, n_dev)
+    if band and args.height % (n_dev * band):
         raise SystemExit(f"height {args.height} is not a multiple of "
-                         f"--band-rows {band}")
+                         f"{n_dev} ranks x --band-rows {band}")
     banded = band is not None
     accum = torch.zeros((args.height, args.width, 3), dtype=torch.float32,
                         device=dev)
@@ -303,16 +383,41 @@ def cmd_progressive(args) -> None:
                 if cap != cfg.render.live_pack_fraction:
                     cfg = dataclasses.replace(cfg, render=dataclasses.replace(
                         cfg.render, live_pack_fraction=cap))
-            live_pack = (tiled.frame_live_pack(scene, cfg, band)
+            # on a mesh the pack's band count rounds up to the world size
+            # (whole packed bands stripe over the ranks)
+            live_pack = (tiled.frame_live_pack(scene, cfg, band,
+                                               multiple_of=n_dev)
                          if banded and cfg.render.live_pack_fraction > 0.0
                          else None)
+            if mesh is not None and banded:
+                cfg = _probe_caps(args, scene, cfg, mesh, band, live_pack,
+                                  r0)
         gen = _generator(dev, args.seed * 31 + i)
         # --train-every N: the train step every Nth frame, and the bake
         # never on a frame that did not train
         do_train = i % max(args.train_every, 1) == 0
         rebake = baked is None or (do_train
                                    and i % max(args.bake_every, 1) == 0)
-        if banded:
+        if mesh is not None and banded:
+            if do_train:
+                state, img, mse, baked2 = dp.dp_train_banded_frame(
+                    state, scene, gen, cfg, mesh, band_rows=band,
+                    env_rgb=env_rgb, baked=None if rebake else baked,
+                    pack=live_pack)
+                if rebake:
+                    baked = baked2
+            elif live_pack is not None:
+                img = dp.dp_render_banded_packed(
+                    state, scene, gen, cfg, mesh, band_rows=band,
+                    env_rgb=env_rgb, baked=baked, pack=live_pack)
+            else:
+                img = dp.dp_render_banded(state, scene, gen, cfg, mesh,
+                                          band_rows=band, env_rgb=env_rgb,
+                                          baked=baked)
+        elif mesh is not None:
+            state, img, mse = dp.dp_frame_step(state, scene, gen, cfg, mesh,
+                                               train=do_train)
+        elif banded:
             if do_train:
                 state, mse = frame_mod.train_only_step(state, scene, gen,
                                                        cfg)
@@ -340,9 +445,10 @@ def cmd_progressive(args) -> None:
             log.log(i, mse=mse_f, frame_s=dt_w, frames=frames_w,
                     mrays_s=args.width * args.height / dt_w / 1e6,
                     **_peak(dev))
-            print(f"frame {i}: {dt_w:.3f}s/frame mse={mse_f:.5f}")
+            r0.print(f"frame {i}: {dt_w:.3f}s/frame mse={mse_f:.5f}")
             win_t0, win_i = time.perf_counter(), i + 1
-    _save_frame(args.out, "progressive", accum / n_accum)
+    if r0.on:
+        _save_frame(args.out, "progressive", accum / n_accum)
 
 
 def main(argv=None) -> None:
@@ -381,6 +487,8 @@ def main(argv=None) -> None:
     sp.add_argument("--frames", type=int, default=8)
     sp.add_argument("--checkpoint", type=str, default=None)
     sp.add_argument("--resume", type=str, default=None)
+    sp.add_argument("--mesh", type=str, default="off",
+                    help="data-parallel mesh: off | auto (all devices) | N")
     sp.add_argument("--sampler", type=str, default=None,
                     choices=["reference", "collision", "delta"],
                     help="distance sampler override (delta = unbiased "
@@ -405,14 +513,24 @@ def main(argv=None) -> None:
     sp.add_argument("--sync-every", dest="sync_every", type=int, default=4,
                     help="host sync interval (frames); the host enqueues "
                          "K frames ahead between syncs")
+    sp.add_argument("--mesh", type=str, default="off",
+                    help="data-parallel mesh: off | auto (all devices) | N")
     sp.add_argument("--sampler", type=str, default=None,
                     choices=["reference", "collision", "delta"],
                     help="distance sampler override (delta = unbiased "
                          "batched Woodcock; runs the same deferred "
                          "production pipeline)")
+    sp.add_argument("--probe-caps", dest="probe_caps", type=str,
+                    default="auto", choices=["auto", "off", "uncapped"],
+                    help="per-shard cap probing on a mesh: auto probes "
+                         "every shard's query/event fractions at each pose "
+                         "and sizes the caps to the worst shard (drop-free "
+                         "by construction, parallel.probe_dp_caps); off "
+                         "keeps config defaults; uncapped disables "
+                         "compaction caps (drop-free oracle for tests)")
     sp.add_argument("--band-rows", dest="band_rows", type=int, default=0,
                     help="override the banded-render row height (0 = auto; "
-                         "height must be a multiple of it)")
+                         "height must divide n_dev * rows)")
     sp.add_argument("--live-pack", dest="live_pack", type=str,
                     default="auto",
                     help="frame-global live-ray packing: auto (probe the "
@@ -425,7 +543,11 @@ def main(argv=None) -> None:
     if args.device.type == "cuda" and not torch.cuda.is_available():
         p.error("no CUDA device is available; pass --device cpu to run on "
                 "the CPU")
-    args.fn(args)
+    try:
+        args.fn(args)
+    finally:
+        if getattr(args, "mesh", "off") != "off":
+            mesh_mod.close_mesh()
 
 
 if __name__ == "__main__":

@@ -75,6 +75,32 @@ def make_envmap(image: torch.Tensor, cfg: EnvMapConfig) -> EnvMap:
                   hpm_strength=scalar(cfg.hpm_strength))
 
 
+def bilinear_wrap_u(image: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear fetch from (H, W, C) by four gathers; u wraps (equirect
+    seam), v clamps. Unlike :func:`bilinear_lookup` the top edge keeps its
+    fraction (JAX's ``_bilinear_wrap_u``, the radiance-field bake's
+    lookup). uv (..., 2) in [0, 1] -> (..., C)."""
+    h, w = image.shape[0], image.shape[1]
+    tu = uv[..., 0] * w - 0.5
+    tv = uv[..., 1] * h - 0.5
+    iu0 = torch.floor(tu)
+    iv0 = torch.floor(tv)
+    fu = (tu - iu0)[..., None]
+    fv = (tv - iv0)[..., None]
+    iu0 = iu0.to(torch.int64)
+    iv0 = iv0.to(torch.int64)
+    flat = image.reshape(-1, image.shape[-1])
+
+    def fetch(iu, iv):
+        return flat[torch.clamp(iv, 0, h - 1) * w + torch.remainder(iu, w)]
+
+    c00, c10 = fetch(iu0, iv0), fetch(iu0 + 1, iv0)
+    c01, c11 = fetch(iu0, iv0 + 1), fetch(iu0 + 1, iv0 + 1)
+    top = c00 + (c10 - c00) * fu
+    bot = c01 + (c11 - c01) * fu
+    return top + (bot - top) * fv
+
+
 def bilinear_lookup(env: EnvMap, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear fetch via the corner table: ONE row gather per sample.
     uv (..., 2) -> (..., 3)."""

@@ -16,7 +16,8 @@ over directions one at a time; here directions are batched in chunks sized
 so a chunk holds at most ``CHUNK_SAMPLES`` samples, which bounds the
 transient memory of the quadrature (a whole scatter-field bake in one batch
 would need tens of GB). Every ray is independent, so the chunking does not
-change any value. The premultiplied radiance field is not ported yet.
+change any value. The premultiplied radiance field (T * Env per voxel and
+out-direction bucket, the 'premultiplied' env mode) is baked the same way.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Tuple
 import torch
 
 from neuralradiancecaching_tpu_torch.config import VolumeConfig
+from neuralradiancecaching_tpu_torch.ops import envmap as envmap_ops
 from neuralradiancecaching_tpu_torch.ops import phase as phase_ops
 from neuralradiancecaching_tpu_torch.ops import volume as volume_ops
 
@@ -190,6 +192,27 @@ def segment_transmittance_field(field: torch.Tensor, a: torch.Tensor,
            - query_tau_field(field, b, d, vol, field_shape))
     t = torch.exp(-torch.clamp(tau, min=0.0))
     return torch.where(length > 0.0, t, 1.0)
+
+
+def build_radiance_field(density_field: torch.Tensor,
+                         env_image: torch.Tensor, vol: VolumeConfig,
+                         steps: int = 16,
+                         field_shape: Tuple[int, int, int] | None = None
+                         ) -> torch.Tensor:
+    """(V * LT * LP, 12) corner-packed rows of T(voxel -> exit along d) *
+    Env(d) at the out-direction bucket centres d, (LT, LP) =
+    vol.field_out_buckets, without the hpm strength (applied at query
+    time, :func:`query_radiance_field`)."""
+    field_shape = field_shape or vol.field_shape
+    l_theta, l_phi = vol.field_out_buckets
+    device = density_field.device
+    pts = voxel_centers(vol, field_shape, device)
+    dirs = bucket_dirs(l_theta, l_phi, device)  # (D, 3)
+    env_rgb = envmap_ops.bilinear_wrap_u(
+        env_image, envmap_ops.dir_to_equirect_uv(dirs))  # (D, 3)
+    t = exit_transmittance(density_field, pts, dirs, steps, vol)  # (D, V)
+    lum = (t[..., None] * env_rgb[:, None, :]).permute(1, 0, 2)  # (V, D, 3)
+    return corner_pack(lum.reshape(-1, l_theta, l_phi, 3)).reshape(-1, 12)
 
 
 def env_cell_integrals(env_image: torch.Tensor, n_theta: int, n_phi: int

@@ -43,10 +43,7 @@ that draws (ratio tracking, MC in-scatter) takes one :class:`SceneUniforms`
 walk (:func:`path_uniform_shapes`). They are drawn from a
 ``torch.Generator`` or handed in by the caller, who can rebuild the JAX
 package's own draws: fed them, a walk reproduces the JAX result lane for
-lane. Not ported (raise ``NotImplementedError``): the collision sampler's
-dense per-slot shade (``coll_shade_cap <= 0``), the NN-mode and the
-collect-mode march split, the reference march's entry kill
-(``march_entry_fraction > 0``) and the 'premultiplied' env mode.
+lane.
 """
 
 from __future__ import annotations
@@ -147,9 +144,6 @@ def trace_scene(scene: Scene, cfg: NRCConfig, pos: torch.Tensor,
     'mc' in-scatter. The ratio and quadrature estimators run in row chunks
     of at most SHADE_CHUNK_SAMPLES density samples (rows are independent,
     so the chunking changes no value)."""
-    if cfg.env_map.transmittance_mode == "premultiplied" and env_samples:
-        raise NotImplementedError("the 'premultiplied' env mode is not "
-                                  "ported")
     shapes = scene_uniform_shapes(cfg, pos.shape[0], env_samples)
     if shapes is not None:
         if uniforms is None:
@@ -254,9 +248,16 @@ def _trace_scene(scene: Scene, cfg: NRCConfig, pos: torch.Tensor,
         for s in range(n_phase):
             rnd_dir = phase_ops.sample_hg_direction(direction, vol.hg_g,
                                                     u.env_hg[s])
-            t = exit_transmittance(pos, rnd_dir, s)
-            light = envmap_ops.sample_direct(scene.env, rnd_dir, hpm=True)
-            acc = acc + light * t[:, None]
+            if env_mode == "premultiplied":
+                # one 12-float row: T * Env baked per (voxel, dir bucket)
+                acc = acc + scene.env.hpm_strength * \
+                    lightfield.query_radiance_field(scene.env_l_field, pos,
+                                                    rnd_dir, vol)
+            else:
+                t = exit_transmittance(pos, rnd_dir, s)
+                light = envmap_ops.sample_direct(scene.env, rnd_dir,
+                                                 hpm=True)
+                acc = acc + light * t[:, None]
         for s in range(n_cdf):
             rnd_dir, radiance = envmap_ops.importance_sample(
                 scene.env, u.env_cdf[s, 0], u.env_cdf[s, 1], cfg.quirks)
@@ -299,8 +300,8 @@ class _Plan(NamedTuple):
     u_dim: int   # uniform rows per slot: 4, plus 2 per delta candidate
 
 
-def _plan(cfg: NRCConfig, n: int, use_nn: bool,
-          max_bounces: int | None) -> _Plan:
+def _plan(cfg: NRCConfig, n: int, use_nn: bool, max_bounces: int | None,
+          collect_events: bool = False) -> _Plan:
     pt = cfg.path
     delta = pt.sampler == "delta"
     u_dim = 4 + 2 * pt.delta_null_steps if delta else 4
@@ -310,8 +311,8 @@ def _plan(cfg: NRCConfig, n: int, use_nn: bool,
     # exact in NN mode; without RR every slot can scatter
     k_steps = min(pt.coll_max_events, max_bounces) if use_nn else max_bounces
     if use_nn:
-        return _Plan(k_steps, 0, n, 0, n, u_dim)  # the NN split raises
-    if delta:
+        p1, live_frac = pt.coll_phase1_steps, pt.coll_live_fraction
+    elif delta:
         # binary escape retires delta lanes without weight RR
         p1, live_frac = pt.delta_phase1_steps, pt.delta_live_fraction
     else:
@@ -321,7 +322,11 @@ def _plan(cfg: NRCConfig, n: int, use_nn: bool,
     if not (0 < p1 < k_steps and live_frac > 0.0):
         return _Plan(k_steps, 0, n, 0, n, u_dim)
     m1 = min(n, max(1024, int(n * live_frac)))
-    p2a = 0 if delta else pt.coll_nonn_phase2_steps
+    # the cascade: only the no-NN collision walk that shades each phase
+    # prefix-packed
+    cascade = not (use_nn or delta or collect_events
+                   or pt.coll_shade_cap <= 0.0)
+    p2a = pt.coll_nonn_phase2_steps if cascade else 0
     if not 0 < p2a < k_steps - p1:
         return _Plan(k_steps, p1, m1, 0, m1, u_dim)
     m2 = min(m1, max(1024, int(n * pt.coll_nonn_live2_fraction)))
@@ -329,23 +334,24 @@ def _plan(cfg: NRCConfig, n: int, use_nn: bool,
 
 
 def _ref_march(cfg: NRCConfig, n: int, use_nn: bool,
-               max_bounces: int | None) -> Tuple[int, int, int]:
-    """(march steps, phase-1 steps (0: one phase), lanes after the repack)
-    of the reference sampler's march."""
+               max_bounces: int | None) -> Tuple[int, int, int, int]:
+    """(march steps, phase-1 steps (0: one phase), phase-1 lanes (the entry
+    kill's pack, n without it), lanes after the repack) of the reference
+    sampler's march."""
     pt = cfg.path
     steps = pt.max_bounces if max_bounces is None else max_bounces
     p1 = pt.march_phase1_steps
     if not (use_nn and p1 > 0 and steps > p1
             and pt.transmittance_mode == "field"):
-        return steps, 0, n
-    if pt.march_entry_fraction > 0:
-        raise NotImplementedError("the reference march's entry kill "
-                                  "(march_entry_fraction) is not ported")
-    return steps, p1, min(n, max(1024, int(n * pt.march_live_fraction)))
+        return steps, 0, n, n
+    m0 = (min(n, max(1024, int(n * pt.march_entry_fraction)))
+          if pt.march_entry_fraction > 0 else n)
+    return steps, p1, m0, min(m0, max(1024, int(n * pt.march_live_fraction)))
 
 
 def walk_uniform_shapes(cfg: NRCConfig, n: int, use_nn: bool,
-                        max_bounces: int | None = None
+                        max_bounces: int | None = None,
+                        collect_events: bool = False
                         ) -> List[Tuple[int, int, int]]:
     """The (steps, rows, lanes) shape of each walk phase's uniforms, in the
     order the walk consumes them (JAX: ``fold_in(key, 0/1/2)``). Collision
@@ -353,12 +359,13 @@ def walk_uniform_shapes(cfg: NRCConfig, n: int, use_nn: bool,
     null-collision candidate; one phase without a march split, (p1, n) and
     (k - p1, m1) with it, (p1, n), (p2a, m1) and (k - p1 - p2a, m2) with the
     cascade. Reference: rows [u_rr, u_hg1, u_hg2, u_d]; (steps, n), or
-    (p1, n) and (steps - p1, m1) with the two-phase march."""
+    (p1, m0) and (steps - p1, m1) with the two-phase march (m0 = n without
+    the entry kill)."""
     if cfg.path.sampler == "reference":
-        steps, p1, m1 = _ref_march(cfg, n, use_nn, max_bounces)
+        steps, p1, m0, m1 = _ref_march(cfg, n, use_nn, max_bounces)
         return ([(steps, 4, n)] if not p1
-                else [(p1, 4, n), (steps - p1, 4, m1)])
-    pl = _plan(cfg, n, use_nn, max_bounces)
+                else [(p1, 4, m0), (steps - p1, 4, m1)])
+    pl = _plan(cfg, n, use_nn, max_bounces, collect_events)
     if not pl.p1:
         return [(pl.k_steps, pl.u_dim, n)]
     if not pl.p2a:
@@ -373,16 +380,20 @@ def _shade_cap(k: int, lanes: int, per_lane: float) -> int:
 
 def path_uniform_shapes(cfg: NRCConfig, n: int, use_nn: bool,
                         env_samples: int | None = None,
-                        max_bounces: int | None = None):
+                        max_bounces: int | None = None,
+                        collect_events: bool = False):
     """(walk shapes, shade row counts) of one walk: the row count of each
     shade call in JAX's key order -- collision and delta: the prefix shade
-    of each march phase (k_scene, then fold_in(k_scene, 1/2)); reference:
-    one compacted call, or one dense call per slot (fold_in(k_scene, k)).
-    The row counts are empty when the shade draws nothing."""
+    of each march phase (k_scene, then fold_in(k_scene, 1/2)), or with
+    ``coll_shade_cap <= 0`` the dense shade of each slot (fold_in(k_scene,
+    slot)); in collect mode only the split's phase-2 shade
+    (fold_in(k_scene, 1)); reference: one compacted call, or one dense call
+    per slot (fold_in(k_scene, k)). The row counts are empty when the shade
+    draws nothing."""
     pt = cfg.path
     if env_samples is None:
         env_samples = cfg.env_map.n_samples
-    walk = walk_uniform_shapes(cfg, n, use_nn, max_bounces)
+    walk = walk_uniform_shapes(cfg, n, use_nn, max_bounces, collect_events)
     if scene_uniform_shapes(cfg, 1, env_samples) is None:
         return walk, []
     if pt.sampler == "reference":
@@ -392,7 +403,14 @@ def path_uniform_shapes(cfg: NRCConfig, n: int, use_nn: bool,
             return walk, [min(n * k_slots,
                               max(1024, int(n * pt.compact_events)))]
         return walk, [n] * k_slots
-    pl = _plan(cfg, n, use_nn, max_bounces)
+    pl = _plan(cfg, n, use_nn, max_bounces, collect_events)
+    if collect_events:
+        if pl.p1 and pt.coll_shade_cap > 0.0:
+            return walk, [_shade_cap(pl.k_steps - pl.p1, pl.m1,
+                                     pt.coll_shade_cap)]
+        return walk, []
+    if pt.coll_shade_cap <= 0.0:
+        return walk, [n] * pl.k_steps
     if not pl.p1:
         return walk, [_shade_cap(pl.k_steps, n, pt.coll_shade_cap)]
     rows = [_shade_cap(pl.p1, n, pt.coll_shade_cap_p1 or pt.coll_shade_cap)]
@@ -408,12 +426,13 @@ def draw_path_uniforms(cfg: NRCConfig, n: int, use_nn: bool,
                        generator: Optional[torch.Generator],
                        device: torch.device | str | None = None,
                        env_samples: int | None = None,
-                       max_bounces: int | None = None) -> PathUniforms:
+                       max_bounces: int | None = None,
+                       collect_events: bool = False) -> PathUniforms:
     """Draw every uniform of one walk over n rays from ``generator``."""
     if env_samples is None:
         env_samples = cfg.env_map.n_samples
     walk, rows = path_uniform_shapes(cfg, n, use_nn, env_samples,
-                                     max_bounces)
+                                     max_bounces, collect_events)
     return PathUniforms(
         [torch.rand(sh, generator=generator, device=device) for sh in walk],
         [draw_scene_uniforms(cfg, r, env_samples, generator, device)
@@ -423,13 +442,13 @@ def draw_path_uniforms(cfg: NRCConfig, n: int, use_nn: bool,
 def _path_uniforms(cfg: NRCConfig, n: int, use_nn: bool, env_samples: int,
                    max_bounces: int | None, uniforms,
                    generator: Optional[torch.Generator],
-                   device) -> PathUniforms:
+                   device, collect_events: bool = False) -> PathUniforms:
     """The walk's :class:`PathUniforms` from what the caller passed: a
     PathUniforms, the walk's uniforms alone (a tensor for a one-phase walk,
     or one per phase; the shade's then come from ``generator``), or None
     (all from ``generator``)."""
     walk_shapes, rows = path_uniform_shapes(cfg, n, use_nn, env_samples,
-                                            max_bounces)
+                                            max_bounces, collect_events)
     if isinstance(uniforms, PathUniforms):
         walk, shade = uniforms
     else:
@@ -471,19 +490,6 @@ class _Walk(NamedTuple):
     last_in: torch.Tensor    # (N, 3) previous event's incoming dir
     q_w: torch.Tensor        # (N,) weight at the cut (incl. quirk phase)
     etau: torch.Tensor       # (N,) exact entry tau (zeros when off)
-
-
-def _check_collision_slice(cfg: NRCConfig, use_nn: bool,
-                           collect_events: bool) -> None:
-    pt = cfg.path
-    if use_nn and 0 < pt.coll_phase1_steps < min(pt.coll_max_events,
-                                                 pt.max_bounces) \
-            and pt.coll_live_fraction > 0.0:
-        raise NotImplementedError("the NN-mode collision march split is not "
-                                  "ported yet")
-    if pt.coll_shade_cap <= 0.0 and not collect_events:
-        raise NotImplementedError("only the prefix-packed event shade is "
-                                  "ported yet")
 
 
 def _take(s, idx: torch.Tensor):
@@ -559,11 +565,14 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     accepted candidate is the scatter point; no acceptance before the exit
     is an escape (binary T0). With the cache on (``use_nn``) Russian
     roulette cuts the walk into a cache query; with it off, weight Russian
-    roulette retires lanes, the march packs the live lanes after
-    ``coll_nonn_phase1_steps`` (delta: ``delta_phase1_steps``) slots (and,
-    for collision, once more after ``coll_nonn_phase2_steps``, the
-    cascade), and each phase's events are shaded prefix-packed at its own
-    width.
+    roulette retires lanes. The march split packs the live lanes after
+    ``coll_phase1_steps`` slots with the cache on, after
+    ``coll_nonn_phase1_steps`` (delta: ``delta_phase1_steps``) without it
+    (and, for the no-cache collision walk, once more after
+    ``coll_nonn_phase2_steps``, the cascade); each phase's events are shaded
+    prefix-packed at its own width. With ``coll_shade_cap <= 0`` the split's
+    phase-2 events are written back to full width and every slot is shaded
+    dense (masked before the weighting: empty slots can shade to NaN).
 
     uniforms: a :class:`PathUniforms`, or the walk's uniforms alone (one
     (steps, rows, lanes) tensor per phase, :func:`walk_uniform_shapes`; a
@@ -574,23 +583,21 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     scattered = 0, events (N, K, 7)): ray-major [pos(3), dir(3), weight(1)]
     rows, weight 0 for invalid slots, in bf16 when the scene fields are --
     for the frame-global deferred shade (both samplers record prefix-shaped
-    events; the collect-mode march split is not ported). entry_tau: the
+    events). With the march split (and ``coll_shade_cap > 0``) only the p1
+    phase-1 slots are returned: the phase-2 events are shaded here at the
+    packed m1 lanes and their sums ride ``scattered``. entry_tau: the
     precomputed exact slot-0 optical depth per
     ray (the pose-static hoist of render/tiled.py); computed here when None.
     """
-    _check_collision_slice(cfg, use_nn, collect_events)
     vol = cfg.volume
     pt = cfg.path
     if env_samples is None:
         env_samples = cfg.env_map.n_samples
     n = ro.shape[0]
     dtype, device = ro.dtype, ro.device
-    plan = _plan(cfg, n, use_nn, max_bounces)
-    if collect_events and plan.p1:
-        raise NotImplementedError("the collect-mode march split is not "
-                                  "ported")
+    plan = _plan(cfg, n, use_nn, max_bounces, collect_events)
     pu = _path_uniforms(cfg, n, use_nn, env_samples, max_bounces, uniforms,
-                        generator, device)
+                        generator, device, collect_events)
     half = torch.tensor(vol.box_size, dtype=dtype, device=device) * 0.5
     ctr = torch.tensor(vol.box_center, dtype=dtype, device=device)
     lo_box, hi_box = ctr - half, ctr + half
@@ -737,15 +744,16 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
                  q_pos=entry, q_dir=rd, last_in=rd,
                  q_w=torch.zeros((n,), dtype=dtype, device=device),
                  etau=etau)
+    # coll_shade_cap <= 0: the split writes phase 2's slot rows back and the
+    # walk shades every slot dense (in collect mode: leaves them unshaded)
+    write_back = pt.coll_shade_cap <= 0.0
+    dense = write_back and not collect_events
     if not plan.p1:
         s_fin, ys = scan_walk(init, pu.walk[0])
-        scattered = (torch.zeros((n, 3), dtype=dtype, device=device)
-                     if collect_events else shade(ys, n, 0))
     else:
         # march split: full-width slots 0..p1-1, then the live lanes packed
         # to m1 lanes (O(n) cumsum compaction; overflow drops the highest
-        # lanes); each phase's events shade prefix-packed at its own width
-        # and one (m1, 3) scatter-add puts phase 2's sums back
+        # lanes)
         s1, ys1 = scan_walk(init, pu.walk[0])
         sel, sel_valid = compact.compact_select(~s1.done, plan.m1)
         sub = _take(s1, sel)
@@ -758,13 +766,50 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
             sub2 = sub2._replace(done=sub2.done | ~val2)
             s2b, ys2b = scan_walk(sub2, pu.walk[2])
             s2 = _merge(s2a, sel2, val2, s2b)
+        else:
+            s2, ys2 = scan_walk(sub, pu.walk[1])
+        s_fin = _merge(s1, sel, sel_valid, s2)
+        if write_back:
+            # the phase-2 slot rows written back to full width (0 elsewhere)
+            ys = tuple(torch.cat([a, compact.scatter_back(
+                n, sel, sel_valid, b.transpose(0, 1), 0.0).transpose(0, 1)])
+                for a, b in zip(ys1, ys2))
+        else:
+            ys = ys1  # phase-2 events shade at the packed m1 lanes below
+
+    if dense:
+        # one shade per slot (JAX: lax.map over the slots, key
+        # fold_in(k_scene, slot)); mask BEFORE weighting: the zero-filled
+        # rows of the written-back slots can shade to NaN
+        e_pos, e_dir, e_w = (y.to(dtype) for y in ys)
+        if env_samples == 0 and not lights:
+            light = torch.zeros_like(e_pos)
+        else:
+            light = torch.stack([trace_scene(
+                scene, cfg, e_pos[k], e_dir[k], env_samples,
+                _nth(pu.shade, k)) for k in range(e_w.shape[0])])
+        light = torch.where((e_w > 0.0)[..., None], light, 0.0)
+        scattered = torch.sum(e_w[..., None] * light, dim=0)
+    elif collect_events:
+        scattered = torch.zeros((n, 3), dtype=dtype, device=device)
+        if plan.p1 and not write_back:
+            # the collect-mode split: the finish sees only the (n, p1)
+            # phase-1 slots; the phase-2 events shade here at the packed m1
+            # lanes and their per-lane sums ride the band's rgb
+            sc2 = torch.where(sel_valid[:, None],
+                              shade(ys2, plan.m1, 0), 0.0)
+            scattered = scattered.index_add(0, sel, sc2)
+    elif not plan.p1:
+        scattered = shade(ys, n, 0)
+    else:
+        # each phase's events shade prefix-packed at its own width; one
+        # (m1, 3) scatter-add puts phase 2's sums back
+        if plan.p2a:
             sc2 = shade(ys2a, plan.m1, 1)
             sc2b = torch.where(val2[:, None], shade(ys2b, plan.m2, 2), 0.0)
             sc2 = sc2.index_add(0, sel2, sc2b)
         else:
-            s2, ys2 = scan_walk(sub, pu.walk[1])
             sc2 = shade(ys2, plan.m1, 1)
-        s_fin = _merge(s1, sel, sel_valid, s2)
         sc1 = shade(ys1, n, 0, cap_events=pt.coll_shade_cap_p1)
         sc2 = torch.where(sel_valid[:, None], sc2, 0.0)
         scattered = sc1.index_add(0, sel, sc2)
@@ -849,7 +894,7 @@ def _reference_path(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     pt = cfg.path
     n = ro.shape[0]
     dtype, device = ro.dtype, ro.device
-    steps, p1, m1 = _ref_march(cfg, n, use_nn, max_bounces)
+    steps, p1, m0, m1 = _ref_march(cfg, n, use_nn, max_bounces)
     k_slots = min(8, steps) if use_nn else steps
     pu = _path_uniforms(cfg, n, use_nn, env_samples, max_bounces, uniforms,
                         generator, device)
@@ -934,7 +979,17 @@ def _reference_path(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         # depth ahead can never scatter, query or change their throughput
         # again; the others are packed to m1 lanes for the remaining steps
         # (overflow keeps the phase-1 state of the highest lanes)
-        s1 = march(init, pu.walk[0])
+        s0 = init
+        if m0 < n:
+            # the entry kill: rays with no optical depth at entry can never
+            # scatter (env see-through, cnt 0, throughput 1); phase 1 marches
+            # only the others, packed to m0 lanes
+            tau0 = lightfield.query_tau_field(scene.env_t_field, entry, rd,
+                                              vol)
+            sel0, val0 = compact.compact_select(tau0 > 1e-4, m0)
+            s0 = _take(init, sel0)
+            s0 = s0._replace(done=s0.done | ~val0)
+        s1 = march(s0, pu.walk[0])
         tau_ahead = lightfield.query_tau_field(scene.env_t_field, s1.cur_pos,
                                                s1.cur_dir, vol)
         live = ~s1.done & (tau_ahead > 1e-4)
@@ -942,6 +997,8 @@ def _reference_path(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         sub = _take(s1, sel)
         sub = march(sub._replace(done=sub.done | ~val), pu.walk[1])
         s = _merge(s1, sel, val, sub)
+        if m0 < n:
+            s = _merge(init, sel0, val0, s)
 
     # shade the recorded events
     ev_pos, ev_prev = s.ev_pos[:, :k_slots], s.ev_prev[:, :k_slots]

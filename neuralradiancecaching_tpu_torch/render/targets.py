@@ -73,7 +73,7 @@ class TrainUniforms(NamedTuple):
     0)``), ``shade`` the target shade's draws (``fold_in(k_t, 1)``); perm
     and hg are None. ``shade`` is empty when the shades draw nothing (the
     'field' modes)."""
-    jitter: torch.Tensor               # (O, 2, H, W) pixel jitters (u, v)
+    jitter: Optional[torch.Tensor]     # (O, 2, H, W) pixel jitters (u, v)
     vertex: Sequence[torch.Tensor]     # vertex-walk phases
     perm: Optional[torch.Tensor]       # (O*N,) int64 lane permutation
     hg: Optional[torch.Tensor]         # (2, S*N) HG pairs (u_cos, u_phi)
@@ -104,10 +104,12 @@ def _target_cap(cfg: NRCConfig, n_t: int) -> int:
     return ns
 
 
-def train_shade_rows(cfg: NRCConfig) -> list[int]:
+def train_shade_rows(cfg: NRCConfig, rays: int | None = None) -> list[int]:
     """The row count of each shade call of one train batch whose draws
-    :class:`TrainUniforms`.shade carries (empty when none draws)."""
-    n = cfg.train.train_width * cfg.train.train_height
+    :class:`TrainUniforms`.shade carries (empty when none draws). rays: the
+    batch's rows (default the train grid's; a data-parallel shard's
+    share)."""
+    n = rays or cfg.train.train_width * cfg.train.train_height
     n_t = cfg.train.target_samples * n
     env = cfg.train.env_samples
     if pathtrace.scene_uniform_shapes(cfg, 1, env) is None:
@@ -121,18 +123,21 @@ def train_shade_rows(cfg: NRCConfig) -> list[int]:
 
 
 def draw_train_uniforms(cfg: NRCConfig, generator: torch.Generator,
-                        device: torch.device | str) -> TrainUniforms:
+                        device: torch.device | str,
+                        rays: int | None = None) -> TrainUniforms:
     """Draw one batch's :class:`TrainUniforms` from ``generator`` (which
-    must live on ``device``)."""
+    must live on ``device``). rays: a data-parallel shard's batch rows --
+    the draws of its share of the ray pool, without the pool's jitter
+    (``jitter`` None: it is drawn once for every shard)."""
     tw, th = cfg.train.train_width, cfg.train.train_height
-    over, n = _oversample(cfg), tw * th
+    over, n = _oversample(cfg), rays or tw * th
     n_t = cfg.train.target_samples * n
     wcfg = _train_walk_cfg(cfg)
 
     def rand(shape):
         return torch.rand(shape, generator=generator, device=device)
 
-    jitter = rand((over, 2, th, tw))
+    jitter = None if rays else rand((over, 2, th, tw))
     if cfg.path.sampler == "reference":
         vertex = [rand((_walk_steps(cfg), 4, n))]
         perm = hg = None
@@ -146,7 +151,7 @@ def draw_train_uniforms(cfg: NRCConfig, generator: torch.Generator,
             wcfg, n_t, use_nn=False, max_bounces=cfg.train.target_bounces)]
     shade = [pathtrace.draw_scene_uniforms(cfg, r, cfg.train.env_samples,
                                            generator, device)
-             for r in train_shade_rows(cfg)]
+             for r in train_shade_rows(cfg, rays)]
     return TrainUniforms(jitter, vertex, perm, hg, target, shade)
 
 

@@ -80,14 +80,19 @@ def _entry_tau(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     return torch.clamp(-torch.log(torch.clamp(t_e, min=1e-20)), max=40.0)
 
 
-def frame_entry_tau(scene: Scene, cfg: NRCConfig) -> torch.Tensor:
-    """Exact entry optical depth per pixel ray (N,) for the current pose;
-    zeros when ``entry_tau_steps`` is 0 (the walk then keeps the row
-    tau)."""
-    ro, rd = _rays(scene, cfg)
+def rays_entry_tau(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
+                   rd: torch.Tensor) -> torch.Tensor:
+    """Exact entry optical depth per ray (N,) of the collision walk; zeros
+    when ``entry_tau_steps`` is 0 or the sampler is not 'collision' (the
+    walk then keeps the row tau)."""
     if cfg.path.entry_tau_steps <= 0 or cfg.path.sampler != "collision":
         return torch.zeros((ro.shape[0],), dtype=ro.dtype, device=ro.device)
     return _entry_tau(scene, cfg, ro, rd)
+
+
+def frame_entry_tau(scene: Scene, cfg: NRCConfig) -> torch.Tensor:
+    """:func:`rays_entry_tau` of every pixel ray for the current pose."""
+    return rays_entry_tau(scene, cfg, *_rays(scene, cfg))
 
 
 def _live_mask(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
@@ -109,19 +114,25 @@ def live_fraction(scene: Scene, cfg: NRCConfig) -> float:
     return int(live.sum()) / live.numel()
 
 
-def frame_live_pack(scene: Scene, cfg: NRCConfig,
-                    band_rows: int = 54) -> LivePack:
+def frame_live_pack(scene: Scene, cfg: NRCConfig, band_rows: int = 54,
+                    multiple_of: int = 1) -> LivePack:
     """The pose-static live-ray pack for the packed banded frame: the live
     rays (:func:`_live_mask`) packed in pixel order to ``live_pack_fraction``
     of the frame rounded up to whole bands (the highest rays drop when
     that is too few), the packed rays, their exact entry tau and the
-    inverse map that un-packs a frame with one gather."""
+    inverse map that un-packs a frame with one gather.
+
+    multiple_of: round the packed band count up to a multiple of it (the
+    world size of the data-parallel packed render, whose ranks take whole
+    packed bands). The extra bands are padding, so a drop-free pack with
+    multiple_of=N equals the multiple_of=1 pack on its valid lanes."""
     h, w = cfg.render.height, cfg.render.width
     n = h * w
     ro, rd = _rays(scene, cfg)
     live = _live_mask(scene, cfg, ro, rd)
     band_n = band_rows * w
     n_bands_p = max(1, -(-int(n * cfg.render.live_pack_fraction) // band_n))
+    n_bands_p = -(-n_bands_p // multiple_of) * multiple_of
     capm = min(n_bands_p * band_n, n)
     sel, val = compact.compact_select(live, capm)
     ro_p, rd_p = ro[sel], rd[sel]
@@ -166,8 +177,15 @@ def _walk_bands(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
     (n_bands, band_n) rays as one batched walk; band i walks with
     uniforms[i], the bands' draws stacked here. Lane for lane the per-band
     walks: the NN-mode collision and delta collect walks have no
-    cross-lane step."""
+    cross-lane step -- unless the march split packs each band's live
+    lanes, and then the bands walk one by one."""
     n_bands, band_n = ro_b.shape[:2]
+    if len(pathtrace.walk_uniform_shapes(cfg, band_n, use_nn=True,
+                                         collect_events=True)) > 1:
+        return _cat_bands([pathtrace.render_band_deferred(
+            scene, cfg, ro_i, rd_i, generator, entry_tau=et_i, uniforms=u)
+            for ro_i, rd_i, et_i, u in zip(ro_b, rd_b, entry_tau,
+                                           _per_band(uniforms, n_bands))])
     shape = (n_bands, *pathtrace.walk_uniform_shapes(cfg, band_n,
                                                      use_nn=True)[0])
     if uniforms is None:
@@ -200,33 +218,48 @@ def _plain_bands(scene: Scene, generator: Optional[torch.Generator],
         uniforms=u)[0] for i, u in enumerate(_per_band(uniforms, n_bands))])
 
 
+def _cat_bands(parts: list) -> tuple:
+    """Per-band walk outputs concatenated along the lanes."""
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def walk_rows(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
+              rd_b: torch.Tensor, entry_tau: Optional[torch.Tensor],
+              generator: Optional[torch.Generator], uniforms=None):
+    """The banded walk over (bands, band_n) rays with the query (and, when
+    deferred, the shade) left to the finish: the collect walk as one batch
+    (entry_tau: (bands, band_n), :func:`rays_entry_tau` of the rays), else
+    band by band, since the in-walk shade's packs and the reference
+    march's repack take caps per band. uniforms: None or one entry per
+    band. Returns render_band_deferred's outputs over all bands' lanes."""
+    if pathtrace.shade_deferred(cfg):
+        return _walk_bands(scene, cfg, ro_b, rd_b, entry_tau, generator,
+                           uniforms)
+    return _cat_bands([pathtrace.render_band_deferred(
+        scene, cfg, ro_i, rd_i, generator, uniforms=u)
+        for ro_i, rd_i, u in zip(ro_b, rd_b,
+                                 _per_band(uniforms, ro_b.shape[0]))])
+
+
 def _bands_program(scene: Scene, generator: Optional[torch.Generator],
                    cfg: NRCConfig, band_rows: int,
                    entry_tau: Optional[torch.Tensor] = None,
                    uniforms=None):
-    """The unpacked banded walk over every pixel ray with the query (and,
-    when deferred, the shade) left to the finish. spp > 1 walks spp
-    sample-major virtual copies of the bands (uniforms: None or one entry
-    per copy). The collect walk runs as one batch; the in-walk shade's
-    packs and the reference march's repack take caps per band, so that
-    walk runs band by band."""
+    """The unpacked banded walk (:func:`walk_rows`) over every pixel ray.
+    spp > 1 walks spp sample-major virtual copies of the bands (uniforms:
+    None or one entry per copy)."""
     h, w = cfg.render.height, cfg.render.width
     ro, rd = _rays(scene, cfg)
     n_bands, band_n = h // band_rows, band_rows * w
     spp = cfg.render.spp
-    ro_b = _tile(ro.reshape(n_bands, band_n, 3), spp)
-    rd_b = _tile(rd.reshape(n_bands, band_n, 3), spp)
-    if pathtrace.shade_deferred(cfg):
-        if entry_tau is None:
-            entry_tau = frame_entry_tau(scene, cfg)  # pose-static: hoist it
-        return _walk_bands(scene, cfg, ro_b, rd_b,
-                           _tile(entry_tau.reshape(n_bands, band_n), spp),
-                           generator, uniforms)
-    parts = [pathtrace.render_band_deferred(scene, cfg, ro_i, rd_i,
-                                            generator, uniforms=u)
-             for ro_i, rd_i, u in zip(ro_b, rd_b,
-                                      _per_band(uniforms, spp * n_bands))]
-    return tuple(torch.cat(p) for p in zip(*parts))
+    if pathtrace.shade_deferred(cfg) and entry_tau is None:
+        entry_tau = frame_entry_tau(scene, cfg)  # pose-static: hoist it
+    return walk_rows(
+        scene, cfg, _tile(ro.reshape(n_bands, band_n, 3), spp),
+        _tile(rd.reshape(n_bands, band_n, 3), spp),
+        None if entry_tau is None
+        else _tile(entry_tau.reshape(n_bands, band_n), spp),
+        generator, uniforms)
 
 
 def _finish(state: nrc.NRCState, baked: torch.Tensor, scene: Scene, rgb,

@@ -4,8 +4,8 @@ Counterpart of ``neuralradiancecaching_tpu/scene/scene.py``. ``make_scene``
 builds what the port's modes read -- the corner table, the exit-tau field,
 the HG-convolved scatter field and the collision field -- on the device of
 the density tensor, stored in f32 or, with ``VolumeConfig.field_dtype=
-"bfloat16"``, baked in f32 and rounded to bf16. The premultiplied radiance
-field is not ported yet and raises.
+"bfloat16"``, baked in f32 and rounded to bf16 -- and, for the
+'premultiplied' env mode, the T * Env radiance field.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ class Scene:
     point_light: PointLight
     env: EnvMap
     env_t_field: torch.Tensor   # exit-tau rows, or a placeholder row
-    env_l_field: torch.Tensor   # premultiplied field: always a placeholder
+    env_l_field: torch.Tensor   # T * Env rows, or a placeholder row
     env_s_field: torch.Tensor   # scatter-field rows, or a placeholder row
     coll_field: torch.Tensor    # collision rows, or a placeholder row
 
@@ -93,9 +93,6 @@ def make_scene(cfg: NRCConfig, density: torch.Tensor | np.ndarray,
                   else "cuda")
     device = torch.device(device)
     density = torch.as_tensor(density, device=device)
-    if cfg.env_map.transmittance_mode == "premultiplied":
-        raise NotImplementedError("the premultiplied radiance field is not "
-                                  "ported yet")
     density = density.to(torch.float32)
     if cfg.quirks.quantize_density_8bit:
         density = volume_ops.quantize_8bit(density)
@@ -125,6 +122,12 @@ def make_scene(cfg: NRCConfig, density: torch.Tensor | np.ndarray,
                             cfg.volume, steps=cfg.env_map.transmittance_steps)
     else:
         env_t_field = placeholder(4)
+    if cfg.env_map.transmittance_mode == "premultiplied":
+        env_l_field = timed("env_l_field", lightfield.build_radiance_field,
+                            corner, env_image, cfg.volume,
+                            steps=cfg.env_map.transmittance_steps)
+    else:
+        env_l_field = placeholder(12)
     if cfg.env_map.in_scatter_mode == "field":
         env_s_field = timed(
             "env_s_field", lightfield.build_scatter_field, corner, env_image,
@@ -140,7 +143,7 @@ def make_scene(cfg: NRCConfig, density: torch.Tensor | np.ndarray,
                            steps=cfg.path.collision_field_steps)
     else:
         coll_field = placeholder(collision.ROW_WIDTH)
-    fields = dict(env_t_field=env_t_field, env_l_field=placeholder(12),
+    fields = dict(env_t_field=env_t_field, env_l_field=env_l_field,
                   env_s_field=env_s_field, coll_field=coll_field)
     if cfg.volume.field_dtype == "bfloat16":
         # baked in f32, stored in bf16: half the bytes of every field row

@@ -211,6 +211,23 @@ def test_shade_deferred_matches_jax(scene, sampler, modes):
         sampler != "reference" and modes == ("field", "field", True))
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_collect_split_bands_match_jax(scene, packed):
+    """The collect-mode march split through ``render_banded`` (JAX's
+    test_collision_collect_split_banded_parity: p1 = 2, live fraction 0.5):
+    each band walks alone, its phase-2 events shaded in the band at the
+    packed m1 lanes and their sums riding the band's rgb into the finish,
+    the finish shading only the phase-1 slots."""
+    cfg, *_ = scene
+    cfg = case_cfg(cfg, "collision", packed=packed)
+    cfg = R(cfg, path=R(cfg.path, coll_phase1_steps=2,
+                        coll_live_fraction=0.5))
+    assert len(tpt.walk_uniform_shapes(port_cfg(cfg), BAND_N, True,
+                                       collect_events=True)) == 2
+    assert_frame_close(*run_both(scene, cfg, jax.random.PRNGKey(31),
+                                 packed))
+
+
 def test_collect_walk_takes_delta(scene):
     """The delta collect walk returns prefix-shaped events of shape (N, K,
     7) and no in-walk shade, as the collision one does."""

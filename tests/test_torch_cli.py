@@ -91,7 +91,7 @@ def small_cli(monkeypatch):
     monkeypatch.setattr(tassets, "load_cloud", lambda path=None: dens)
     monkeypatch.setattr(tassets, "load_env_map",
                         lambda path=None: tassets.synthesize_sky(32, 64))
-    monkeypatch.setattr(tcli, "_band_rows", lambda w, h:
+    monkeypatch.setattr(tcli, "_band_rows", lambda w, h, n_dev=1:
                         BAND if w * h > 16 * 16 else None)
     return tcli
 

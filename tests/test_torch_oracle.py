@@ -164,8 +164,9 @@ def jax_path_uniforms(cfg, key, n, use_nn, env_samples=None,
     """The draws of one JAX trace_path(key) walk as PathUniforms: the march
     phases fold_in(key, 0/1/2) and the shade calls -- collision and delta:
     k_scene = fold_in(key, k_steps + 1), then fold_in(k_scene, 1/2)
-    (pathtrace.py:478-596); reference: fold_in(key, max_bounces + 1),
-    compacted once or per slot fold_in(k_scene, slot) (:831-885)."""
+    (pathtrace.py:478-596), or per slot fold_in(k_scene, slot) with
+    coll_shade_cap <= 0 (:597-611); reference: fold_in(key, max_bounces +
+    1), compacted once or per slot fold_in(k_scene, slot) (:831-885)."""
     tcfg = port_cfg(cfg)
     env = cfg.env_map.n_samples if env_samples is None else env_samples
     walk_shapes, rows = tpt.path_uniform_shapes(tcfg, n, use_nn, env,
@@ -174,8 +175,11 @@ def jax_path_uniforms(cfg, key, n, use_nn, env_samples=None,
             for i, sh in enumerate(walk_shapes)]
     steps = sum(sh[0] for sh in walk_shapes)
     k_scene = jax.random.fold_in(key, steps + 1)
-    if cfg.path.sampler == "reference" and not (
-            use_nn and cfg.path.compact_events > 0):
+    if (cfg.path.sampler == "reference" and not (
+            use_nn and cfg.path.compact_events > 0)) or (
+            cfg.path.sampler != "reference"
+            and cfg.path.coll_shade_cap <= 0.0):
+        # the dense shade: one call per slot, fold_in(k_scene, slot)
         keys = [jax.random.fold_in(k_scene, k) for k in range(len(rows))]
     else:
         keys = [k_scene] + [jax.random.fold_in(k_scene, i)

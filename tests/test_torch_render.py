@@ -12,6 +12,12 @@ floor() and its fraction disagree in fused expressions, and ~2% of the
 exactly on grid planes) land one hash cell off -- a difference of XLA:CPU
 from the op-by-op JAX result, not of the port.
 
+The same bounds hold the walks' branches that no preset sets against
+JAX's (``test_walk_branch_matches_jax``): the NN-mode march split of the
+collision and delta walks, the dense per-slot shade, the reference march's
+entry kill and the premultiplied env mode (its radiance field at the field
+bakes' bound).
+
 Tolerance: >= 99.5% of pixels within 1e-4 + 1e-3 * |ref| (a one-ulp
 difference in a transcendental can flip a voxel or direction bucket; all
 pixels pass as measured) and mean radiance within 1e-4 relative (measured
@@ -44,6 +50,7 @@ from neuralradiancecaching_tpu_torch.render import frame as tframe
 from neuralradiancecaching_tpu_torch.render import pathtrace as tpt
 from neuralradiancecaching_tpu_torch.scene import camera as tcam
 from neuralradiancecaching_tpu_torch.scene import scene as tscene
+from tests.test_torch_oracle import jax_path_uniforms
 
 R = dataclasses.replace
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -207,24 +214,97 @@ def test_render_on_cpu_takes_plain_mlp_and_no_launch(setup):
     assert fused_mlp.LAUNCHES == before
 
 
-@pytest.mark.parametrize("change", [
-    {"path": {"sampler": "reference", "march_entry_fraction": 0.25}},
-    {"env_map": {"in_scatter_mode": "mc",
-                 "transmittance_mode": "premultiplied"}},
-    {"path": {"coll_shade_cap": 0.0}},
-    {"path": {"sampler": "delta", "coll_shade_cap": 0.0}},
-    {"path": {"coll_phase1_steps": 2}},
-])
-def test_unported_modes_raise(setup, change):
-    """What the port leaves out raises: the reference march's entry kill,
-    the premultiplied env mode, the dense per-slot shade of the collision
-    and delta walks, the NN-mode collision march split."""
-    cfg, _, ts, _, tstate = setup
+WALK_SIDE = 48  # 2304 lanes: the packs and the kill act above their
+# 1024-lane floor
+
+# each walk branch: (entry point compared, config changes)
+BRANCHES = {
+    "nn_split_collision": ("walk", {"path": {"coll_phase1_steps": 2}}),
+    "nn_split_delta": ("walk", {"path": {"sampler": "delta",
+                                         "coll_phase1_steps": 2}}),
+    "dense_collision": ("render", {"path": {"coll_shade_cap": 0.0}}),
+    "dense_delta": ("render", {"path": {"sampler": "delta",
+                                        "coll_shade_cap": 0.0}}),
+    "entry_kill": ("walk", {"path": {"sampler": "reference",
+                                     "march_entry_fraction": 0.25}}),
+    "premultiplied": ("render", {"env_map": {
+        "in_scatter_mode": "mc", "transmittance_mode": "premultiplied"}}),
+}
+
+
+def branch_cfg(cfg, change):
     for section, kw in change.items():
         cfg = R(cfg, **{section: R(getattr(cfg, section), **kw)})
-    with pytest.raises(NotImplementedError):
-        tframe.render_only_step(tstate, ts, torch.Generator(),
-                                port_cfg(cfg))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def premultiplied(setup):
+    """Both packages' scenes with the premultiplied radiance field."""
+    cfg = branch_cfg(setup[0], BRANCHES["premultiplied"][1])
+    rng = np.random.default_rng(0)
+    dens = rng.random(cfg.volume.grid_shape, dtype=np.float32) * 0.5
+    env = assets.synthesize_sky(32, 64)
+    js = jax_o0(lambda d, e: jscene.make_scene(cfg, d, e), dens, env)
+    ts = tscene.make_scene(port_cfg(cfg), torch.tensor(dens),
+                           torch.tensor(env))
+    return js, ts
+
+
+def test_build_radiance_field_matches_jax(premultiplied):
+    """The premultiplied T * Env field of both packages' scene bakes, at the
+    field bakes' bound (tests/test_torch_scene.py)."""
+    js, ts = premultiplied
+    ref = np.asarray(js.env_l_field)
+    out = ts.env_l_field.numpy()
+    assert out.shape == ref.shape and ref.shape[0] > 1
+    assert ref.max() > 0.0
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_walk_branch_matches_jax(setup, premultiplied, branch):
+    """The walks' branches the port once left out, each against JAX from
+    the JAX package's own draws (tests/test_torch_oracle.py:
+    jax_path_uniforms): the NN-mode march split of the collision and delta
+    walks and the reference march's entry kill through ``trace_path`` at
+    48x48 (per lane, as test_trace_path_outputs_match_jax), the dense
+    per-slot shade of the collision and delta walks and the premultiplied
+    env mode through ``render_only_step`` at 32x32 (per pixel and the
+    mean, as test_render_only_step_matches_jax)."""
+    cfg, js, ts, jstate, tstate = setup
+    kind, change = BRANCHES[branch]
+    cfg = branch_cfg(cfg, change)
+    tcfg = port_cfg(cfg)
+    if branch == "premultiplied":
+        js, ts = premultiplied
+    key = jax.random.PRNGKey(40)
+    if kind == "render":
+        ref = np.asarray(jax_o0(
+            lambda s, sc, k: jframe.render_only_step(s, sc, k, cfg),
+            jstate, js, key))
+        out = tframe.render_only_step(
+            tstate, ts, None, tcfg,
+            uniforms=jax_path_uniforms(cfg, key, W * H, True)).numpy()
+        assert np.isfinite(out).all()
+        frac_ok, rel_mean = _close_enough(out, ref)
+        assert frac_ok >= 0.995 and rel_mean <= 1e-4, (frac_ok, rel_mean)
+        return
+    n = WALK_SIDE * WALK_SIDE
+    shapes = tpt.walk_uniform_shapes(tcfg, n, use_nn=True)
+    assert len(shapes) == 2 and shapes[0][2] + shapes[1][2] < 2 * n, shapes
+    jro, jrd = jcam.pixel_rays(js.camera, WALK_SIDE, WALK_SIDE)
+    tro, trd = tcam.pixel_rays(ts.camera, WALK_SIDE, WALK_SIDE)
+    ref = jax_o0(lambda sc, o, d: jpt.trace_path(sc, cfg, o, d, key,
+                                                  use_nn=True), js, jro, jrd)
+    out = tpt.trace_path(ts, tcfg, tro, trd, None, use_nn=True,
+                         uniforms=jax_path_uniforms(cfg, key, n, True))
+    ok = np.ones(n, bool)
+    for a, b in zip(ref, out):
+        a, b = np.asarray(a).reshape(n, -1), b.numpy().reshape(n, -1)
+        ok &= np.all(np.abs(b - a) <= 1e-4 + 1e-3 * np.abs(a), axis=-1)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert float(out.query_weight.gt(0).float().mean()) > 0.05
 
 
 def test_port_never_imports_jax():
@@ -233,8 +313,11 @@ def test_port_never_imports_jax():
     hoists and ``render_banded``), the unbiased oracle's render (delta,
     ratio tracking, MC in-scatter) and a reference-sampler online frame,
     its config and its assets, the CLI's banded nrc-online (with a
-    checkpoint) and progressive runs, its mnist (on labels written here)
-    and image-fit runs, and the offline path tracer on the CPU load no
+    checkpoint) and progressive runs, both again data-parallel on a gloo
+    group of one (``--mesh 1``: ``dp_train_banded_frame``, the per-shard
+    cap probe), the ``parallel`` package and its job runner, its mnist (on
+    labels written here) and image-fit runs, and the offline path tracer
+    on the CPU load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -310,10 +393,12 @@ def test_port_never_imports_jax():
                                         collision_field_steps=4)))
         assets.load_cloud = lambda path=None: dens
         assets.load_env_map = lambda path=None: assets.synthesize_sky(16, 32)
-        cli._band_rows = lambda w, h: 4
+        cli._band_rows = lambda w, h, n_dev=1: 4
         with tempfile.TemporaryDirectory() as out:
             for argv in (["nrc-online", "--frames", "1", "--checkpoint",
-                          out + "/ck"], ["progressive", "--frames", "1"]):
+                          out + "/ck"], ["progressive", "--frames", "1"],
+                         ["nrc-online", "--frames", "1", "--mesh", "1"],
+                         ["progressive", "--frames", "1", "--mesh", "1"]):
                 cli.main(["--device", "cpu", *argv, "--width", "16",
                           "--height", "16", "--out", out])
             import struct
@@ -327,6 +412,8 @@ def test_port_never_imports_jax():
                       out])
             cli.main(["--device", "cpu", "image-fit", "--steps", "2",
                       "--out", out])
+        from neuralradiancecaching_tpu_torch import parallel
+        from neuralradiancecaching_tpu_torch.parallel import job
         from neuralradiancecaching_tpu_torch.ops import volume
         from neuralradiancecaching_tpu_torch.render import (
             offline_pathtracer as opt)

@@ -317,13 +317,19 @@ def test_collect_walk_matches_jax(f32, field_dtype):
 
 
 def test_collect_split_and_spp_raise(f32):
+    """The collect walk's march split returns only its p1 phase-1 slots
+    (the phase-2 events shade in the walk, into ``scattered``); a band
+    height that does not divide the frame raises."""
     cfg, _, ts, _, tstate = f32
     tc = port_cfg(cfg)
     ro, rd = tcam.pixel_rays(ts.camera, W, H)
     split = R(tc, path=R(tc.path, coll_phase1_steps=2))
-    with pytest.raises(NotImplementedError):
-        tpt.trace_path_collision(ts, split, ro, rd, torch.Generator(),
-                                 use_nn=True, collect_events=True)
+    res, ev = tpt.trace_path_collision(ts, split, ro, rd,
+                                       torch.Generator().manual_seed(0),
+                                       use_nn=True, collect_events=True)
+    assert tuple(ev.shape) == (W * H, 2, 7)
+    assert torch.isfinite(res.scattered).all()
+    assert (res.scattered > 0).any()
     with pytest.raises(ValueError):
         ttiled.render_banded(tstate, ts, torch.Generator(), tc, 7)
 

@@ -46,7 +46,13 @@ density grid, fields at (32, 24, 40) voxels):
   (``train_only_step`` -> ``bake`` -> ``render_banded``; ``frame_step``)
   on the same draws; ``probe_dp_caps`` at 1080p; two gloo ranks on the
   one card at a small cut; the CLI's ``--mesh`` frames under
-  ``torchrun``.
+  ``torchrun``;
+- ``reference_exact()``, the JAX package's bit-faithful reproduction of
+  the reference, as it ships at 800x800 (every quirk, the 8-bit density,
+  quadrature light and env transmittance, MC in-scatter through the dense
+  per-slot shade, momentum SGD and plain hash SGD), once more with
+  ``fused_inference`` (K1 f32 on its query); with it the raw-grid
+  trilinear fetch, ``tiled.render_tiled`` and ``utils/``.
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
 (csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
@@ -77,7 +83,7 @@ on the frame's real rows, the quality legs, and the card vs the CPU port
 on the packed frame at a small size with f32 and with bf16 fields; then
 configs 3 and 4 as they ship: 4+1 frames each, 32 train steps whose mse
 must fall, the stages and a profiled frame of each, each render again in
-the CLI's 32-row bands (2+1 warm frames and a profile), K1 f32 on config
+the CLI's 32-row bands (1+1 warm frames), K1 f32 on config
 4's real query rows; and the card vs the CPU port at 32x32 on the oracle's
 render and on one config-4-preset frame; then the port's CLI as a user
 runs it, each run its own process at the subcommand's default size
@@ -109,13 +115,24 @@ each other and equal to world size 1 on the renders; e: ``torchrun
 progressive --mesh auto --frames 4`` and ``nrc-online --mesh 1 --frames
 4``, each its own process; f: the walks' branches no preset sets -- the
 NN-mode march split, the dense per-slot shade, the reference march's
-entry kill, the premultiplied env mode -- card vs CPU port). Launch counts are
+entry kill, the premultiplied env mode -- card vs CPU port); reference_exact
+(phase 17: a, 2 frame_steps at 800x800 after a warm-up timed with
+``utils.profiling.PhaseTimer``, their halves and peak memory, a profiled
+frame, 32 train_only_steps whose mse is logged, and one frame with
+``fused_inference`` on the same state and draws as a plain-MLP frame, where
+K1 f32 must launch once and the image stay within the render bound; b, the
+card vs the CPU port on one such frame at 32x32, as it ships and with the
+lights on; c, the raw-grid fetch against the corner table on the card
+(bitwise) and the CPU port, ``render_tiled`` against ``render_banded`` at
+32x32 with the cache off and on, a ``utils.profiling.trace`` file under
+the git-ignored ``out/`` and ``utils.debug.nan_check`` raising on a NaN).
+Launch counts are
 reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
 the card's name and power limit, the one before it the kernels' JSON
 record (K1 f32's launches are those of the config-4-preset frames, oct
-and dense/hash); the
+and dense/hash, and of the fused reference_exact frame); the
 last line is {"ok": true, "device": {...}}. K1's launches in the record
 include the data-parallel frames' (phases 16a-b).
 """
@@ -183,8 +200,9 @@ SMALL_BF16_FRAC_OK = 0.99
 # frames after one warm-up, 32 train steps whose mse must fall
 PRESET_SIDE = 800
 # the same presets' frames in the CLI's bands, warm: timed frames after a
-# warm-up (each a few seconds: a band issues about a whole frame's launches)
-BANDED_FRAMES = 2
+# warm-up (each a few seconds: a band issues about a whole frame's launches;
+# one, and no profile, to keep the run inside its time limit)
+BANDED_FRAMES = 1
 # the JAX bench's quality legs (bench.py:596-810): 256^2 ground-truth legs,
 # the oracle twins at 2 x 128 spp, the no-cache collision and the NN twins
 # at 2 x 64 spp, the NN leg after 400 train steps at query cap 0.375
@@ -235,10 +253,17 @@ WALK_SIDE = 48
 CARD = ""
 # the data-parallel phases' results, logged once at the end
 DP_LOG: dict = {}
+# the host clock at the start of main(): each phase logs its start against it
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(label: str) -> None:
+    """Log a phase's start in seconds since the start of main()."""
+    log(f"-- [{time.perf_counter() - T_START:.1f} s] phase {label}")
 
 
 def nvidia_smi() -> str:
@@ -502,8 +527,11 @@ def profile_call(label: str, fn) -> None:
         fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # key_averages() walks every event of the trace: once per profile (a
+    # banded frame's trace holds ~10^6 of them)
+    events = prof.key_averages()
     kernels_, ops = [], []
-    for e in prof.key_averages():
+    for e in events:
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
         if dev_us > 0:
@@ -513,7 +541,7 @@ def profile_call(label: str, fn) -> None:
     # host waits on the stream: a blocking copy to the card (a tensor built
     # from host data) synchronizes it, and the card idles until the host
     # enqueues again
-    syncs = sum(e.count for e in prof.key_averages()
+    syncs = sum(e.count for e in events
                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
     log(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
@@ -1013,17 +1041,20 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     del baked, feats, ev, qp, qd, qw, inv, rgb_p, trans_p
     torch.cuda.empty_cache()
 
+    phase("16a: config 5 data parallel")
     # -- 16a, 16c. the production frame data-parallel, the per-shard probe --
     dp_launches = dp_progressive(dev, scene, cfg, state, env_rgb, pack,
                                  probes)
     del pack, env_rgb
     torch.cuda.empty_cache()
 
+    phase("8h: quality legs")
     # -- 8h. the bench's quality legs on config 5's scene --------------------
     legs = quality_legs(dev, scene, cfg, state)
     del scene, state
     torch.cuda.empty_cache()
 
+    phase("8i: packed frame card vs CPU")
     # -- 8i. the card vs the CPU port on the small packed frame -------------
     for field_dtype in ("float32", "bfloat16"):
         progressive_small_vs_cpu(dev, field_dtype)
@@ -1143,14 +1174,20 @@ def preset_config(name: str, small: bool = False):
     else:
         cfg = cfg_mod.nrc_online_config(side, side)
         cfg = r(cfg, mlp=r(cfg.mlp, fused_inference=True))
-    if small:
-        cfg = r(cfg, path=r(cfg.path, max_bounces=8),
-                volume=r(cfg.volume, grid_shape=(16, 12, 20),
-                         field_shape=(6, 5, 8)),
-                env_map=r(cfg.env_map, scatter_quad_dirs=(8, 16)),
-                train=r(cfg.train, train_width=16, train_height=16,
-                        target_bounces=16))
-    return cfg
+    return small_cut(cfg) if small else cfg
+
+
+def small_cut(cfg):
+    """A preset cut to the tests' scale (tests/test_torch_reference.py:cut):
+    8 bounces, the (16, 12, 20) grid, (6, 5, 8) fields, a 16x16 train grid
+    of 16-step target walks."""
+    r = dataclasses.replace
+    return r(cfg, path=r(cfg.path, max_bounces=8),
+             volume=r(cfg.volume, grid_shape=(16, 12, 20),
+                      field_shape=(6, 5, 8)),
+             env_map=r(cfg.env_map, scatter_quad_dirs=(8, 16)),
+             train=r(cfg.train, train_width=16, train_height=16,
+                     target_bounces=16))
 
 
 def reset_counts() -> None:
@@ -1189,9 +1226,12 @@ def stage_peak(fn) -> int:
 def banded_frames(label: str, fn, band: int, unbanded_ms: float,
                   unbanded_peak: int) -> None:
     """A preset's 800x800 frame in the CLI's bands, warm (phases 9b, 10b):
-    BANDED_FRAMES timed frames after a warm-up, their peak memory, both
-    beside the unbanded frame's in this run, and one profiled frame (device
-    busy and idle share, launches)."""
+    BANDED_FRAMES timed frames after a warm-up and their peak memory, both
+    beside the unbanded frame's in this run. Not profiled: a banded
+    frame's trace holds ~10^6 events (134,586 and 254,817 launches for
+    configs 4 and 3, PERF.md), and reading it back takes tens of
+    seconds."""
+    phase(f"9b/10b: {label} banded")
     ms, imgs = timed_frames(lambda i: fn(), BANDED_FRAMES)
     peak = torch.cuda.max_memory_allocated()
     check(all(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
@@ -1205,7 +1245,6 @@ def banded_frames(label: str, fn, band: int, unbanded_ms: float,
         f"memory {peak / 2**30:.3f} GiB against the unbanded "
         f"{unbanded_peak / 2**30:.3f} GiB")
     del imgs
-    profile_call(f"{label} render_banded ({band}-row bands)", fn)
 
 
 def preset_frames(dev, dens, env, params_he):
@@ -1215,7 +1254,7 @@ def preset_frames(dev, dens, env, params_he):
     target walks, the train step, the two-phase march, the compacted
     shade, the K1 f32 query), 32 train_only_steps whose mse must fall, the
     stages of both frames, one profiled frame each, both renders in the
-    CLI's 32-row bands (warm, profiled, beside the unbanded ones), and K1
+    CLI's 32-row bands (warm, beside the unbanded ones), and K1
     f32 held to its plain version on config 4's real query rows. Returns
     (K1 f32's
     launches over the 4 timed config-4 frames, its max abs error vs plain
@@ -1246,6 +1285,7 @@ def preset_frames(dev, dens, env, params_he):
     state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), c4,
                            device=dev)
 
+    phase("9: config 3")
     # -- 9. config 3: the cache-off reference render --------------------------
     gen = torch.Generator(device=dev).manual_seed(3)
     ms, imgs = timed_frames(
@@ -1277,6 +1317,7 @@ def preset_frames(dev, dens, env, params_he):
     banded_frames("config 3", lambda: tiled.render_banded(
         state, scene, gen, c3, band_rows=band), band, med, peak)
 
+    phase("10: config 4")
     # -- 10. config 4: the online frame with the reference sampler ------------
     gen = torch.Generator(device=dev).manual_seed(4)
     halves: list[dict] = []
@@ -1365,10 +1406,12 @@ def preset_frames(dev, dens, env, params_he):
             f"float64: kernel {f64_e:.3e}, plain {plain_f64:.3e}")
     log(f"  config 4 render: {float((res.query_weight > 0).float().mean()):.4f}"
         f" of the rays query the cache")
+    phase("10c: dense/hash")
     # -- 10c. the same frame with the dense bake and the hash train encode
     launches_dense = dense_hash_frames(
         scene, state, c4, gen, batch, res, peak,
         {"frame": ms, "train half": train, "render half": render})
+    phase("16b: config 4 data parallel")
     # -- 16b. the same frame data-parallel ----------------------------------
     launches_dp = dp_preset(dev, scene, state, c4)
     profile_call("config 4 frame_step", lambda: frame.frame_step(
@@ -2367,8 +2410,286 @@ def dp_cli_runs() -> dict:
     return out
 
 
+def exact_config(small: bool = False, lights: bool = False,
+                 fused: bool = False):
+    """``reference_exact()`` at PRESET_SIDE as it ships (no light on, the
+    plain query MLP); ``small`` cuts it to the tests' scale
+    (tests/test_torch_exact.py), ``lights`` turns the dir and point
+    lights on (tests/test_torch_oracle.py:with_lights), ``fused`` puts K1
+    f32 on its cache query."""
+    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    r = dataclasses.replace
+    side = 32 if small else PRESET_SIDE
+    cfg = cfg_mod.reference_exact(side, side)
+    if small:
+        cfg = small_cut(cfg)
+    if lights:
+        cfg = r(cfg, dir_light=r(cfg.dir_light, enabled=True, strength=2.0,
+                                 zenith=-1.0, azimuth=0.5),
+                point_light=r(cfg.point_light, enabled=True, strength=3.0,
+                              position=(5.0, 3.0, -2.0),
+                              color=(1.0, 0.5, 0.25)))
+    if fused:
+        cfg = r(cfg, mlp=r(cfg.mlp, fused_inference=True))
+    return cfg
+
+
+def pixel_agreement(got: np.ndarray, ref: np.ndarray):
+    """(share of pixels within 1e-4 + 1e-3 |ref|, relative difference of
+    the means, max abs difference) of two (..., 3) images."""
+    got, ref = got.reshape(-1, 3), ref.reshape(-1, 3)
+    ok = np.all(np.abs(got - ref) <= 1e-4 + 1e-3 * np.abs(ref), axis=-1)
+    return (float(ok.mean()), abs(got.mean() - ref.mean()) / abs(ref.mean()),
+            float(np.abs(got - ref).max()))
+
+
+def reference_exact_frames(dev, dens, env) -> int:
+    """``reference_exact()`` as it ships at 800x800 (phase 17a): 2 frame_
+    steps after a warm-up timed with utils.profiling.PhaseTimer, their
+    train and render halves and peak memory, one profiled frame, 32
+    train_only_steps (their mse logged, not gated: the reference's
+    momentum SGD learns more slowly than Adam), then one frame with
+    ``fused_inference`` on the same state and draws as one more frame as it
+    ships: K1 f32 launches once there and its image stays within the render
+    bound of the plain MLP's. Returns K1's launches in that frame."""
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
+                                                        targets)
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    from neuralradiancecaching_tpu_torch.utils.profiling import PhaseTimer
+    cfg = exact_config()
+    check(cfg.path.sampler == "reference" and all(
+        dataclasses.astuple(cfg.quirks)) and not cfg.mlp.fused_inference,
+        "reference_exact no longer ships as this phase expects")
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict[str, float] = {}
+    t0 = time.perf_counter()
+    scene = scn.make_scene(cfg, dens, env, timings=timings, device=dev)
+    sync()
+    levels = scene.density_grid * 255.0
+    check(float((levels - torch.round(levels)).abs().max()) < 1e-4,
+          "the reference_exact scene is not quantized to 8 bits")
+    log(f"reference_exact scene bake {time.perf_counter() - t0:.3f} s (8-bit "
+        f"density, corner table, no field); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    check(state.mlp_second is None and state.opt_step is None,
+          "reference_exact's state carries Adam fields")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    timer = PhaseTimer()
+    state, _ = frame.frame_step(state, scene, gen, cfg)  # warm-up
+    sync()
+    reset_counts()
+    ms, halves, mses, means = [], [], [], []
+    for _ in range(2):
+        h: dict[str, float] = {}
+        before = timer.totals.get("frame_step", 0.0)
+        with timer.phase("frame_step", sync_on=state.hash_table):
+            state, out = frame.frame_step(state, scene, gen, cfg, timings=h)
+        ms.append((timer.totals["frame_step"] - before) * 1e3)
+        halves.append(h)
+        mses.append(float(out.mse))
+        means.append(float(out.image.mean()))
+        check(tuple(out.image.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
+              and bool(torch.isfinite(out.image).all())
+              and np.isfinite(mses[-1]), "reference_exact frame not finite")
+    peak = torch.cuda.max_memory_allocated()
+    check(fused_mlp.LAUNCHES == 0, "reference_exact as it ships launched K1")
+    train = [x["train"] * 1e3 for x in halves]
+    render = [x["render"] * 1e3 for x in halves]
+    log(f"reference_exact frame_step {PRESET_SIDE}x{PRESET_SIDE} ({CARD}): "
+        f"ms {[round(t, 3) for t in ms]} (PhaseTimer: "
+        f"{timer.summary()}); train half {[round(t, 3) for t in train]}, "
+        f"render half {[round(t, 3) for t in render]} ms "
+        f"({PRESET_SIDE ** 2 / statistics.median(render) / 1e3:.3f} "
+        f"Mrays/s); mse {[round(m, 6) for m in mses]}; image means "
+        f"{[round(m, 5) for m in means]}; K1 launches {fused_mlp.LAUNCHES}, "
+        f"K2 {matmul.LAUNCHES}; peak memory {peak / 2**30:.3f} GiB")
+    del out
+    profile_call("reference_exact frame_step", lambda: frame.frame_step(
+        state, scene, gen, cfg))
+
+    steps = []
+    with timer.phase("train_only_step x32", sync_on=state.hash_table):
+        for _ in range(TRAIN_STEPS):
+            state, mse = frame.train_only_step(state, scene, gen, cfg)
+            steps.append(mse)
+    steps = [float(m) for m in steps]
+    check(bool(np.isfinite(steps).all()), "reference_exact mse not finite")
+    log(f"reference_exact: {TRAIN_STEPS} train_only_steps "
+        f"{timer.totals['train_only_step x32'] * 1e3 / TRAIN_STEPS:.3f} "
+        f"ms/step, mse {[round(m, 6) for m in steps]} (logged, not gated), "
+        f"mean of the first 8 {np.mean(steps[:8]):.6f}, of the last 8 "
+        f"{np.mean(steps[-8:]):.6f}")
+
+    # the same frame with K1 f32 on the query: one set of draws, one state
+    u_t = targets.draw_train_uniforms(cfg, gen, dev)
+    u_r = pathtrace.draw_path_uniforms(cfg, PRESET_SIDE ** 2, True, gen,
+                                       device=dev)
+    sync()
+    reset_counts()
+    _, plain = frame.frame_step(state, scene, None, cfg, train_uniforms=u_t,
+                                uniforms=u_r)
+    sync()
+    check(fused_mlp.LAUNCHES == 0, "the plain-MLP frame launched K1")
+    fused_cfg = exact_config(fused=True)
+    reset_counts()
+    _, fused = frame.frame_step(state, scene, None, fused_cfg,
+                                train_uniforms=u_t, uniforms=u_r)
+    sync()
+    launches = fused_mlp.LAUNCHES
+    check(launches == 1 and fused_mlp.LAUNCHES_BF16 == 0,
+          f"K1 f32 launched {launches} times in the fused reference_exact "
+          f"frame")
+    frac, rel, diff = pixel_agreement(fused.image.cpu().numpy(),
+                                      plain.image.cpu().numpy())
+    log(f"reference_exact with fused_inference: K1 f32 launches {launches}; "
+        f"against the plain MLP's frame on the same state and draws: "
+        f"{frac:.4f} of pixels within 1e-4 + 1e-3|ref|, mean rel diff "
+        f"{rel:.3e}, max abs diff {diff:.3e}; mse {float(fused.mse):.6f} vs "
+        f"{float(plain.mse):.6f}")
+    mse_rel = abs(float(fused.mse) - float(plain.mse)) / float(plain.mse)
+    check(frac >= SMALL_FRAC_OK and rel <= SMALL_REL_MEAN
+          and mse_rel <= 1e-6,
+          "the fused reference_exact frame disagrees with the plain one")
+    return launches
+
+
+def exact_small_vs_cpu(dev) -> None:
+    """The card vs the CPU port at 32x32 (phase 17b): one reference_exact
+    frame_step from one state and one set of draws (drawn on the CPU), as
+    it ships and with the lights on, at the train tests' bounds (every
+    hash entry within 1e-6: plain SGD has no eps to amplify a rounding)."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
+                                                        targets)
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    rng = np.random.default_rng(0)
+    dens = rng.random((16, 12, 20), dtype=np.float32) * 0.5
+    env = assets.synthesize_sky(32, 64)
+    for lights in (False, True):
+        cfg = exact_config(small=True, lights=lights)
+        cpu_gen = torch.Generator().manual_seed(12)
+        u_t = targets.draw_train_uniforms(cfg, cpu_gen, "cpu")
+        u_r = pathtrace.draw_path_uniforms(cfg, 32 * 32, True, cpu_gen)
+        state = nrc.init_state(torch.Generator().manual_seed(2), cfg,
+                               device="cpu")
+        out = []
+        for d in ("cpu", dev):
+            sc = scn.make_scene(cfg, dens, env, device=d)
+            st, o = frame.frame_step(state_to(state, d), sc, None, cfg,
+                                     train_uniforms=to_device(u_t, d),
+                                     uniforms=to_device(u_r, d))
+            out.append((state_to(st, "cpu"), o.image.cpu().numpy(),
+                        float(o.mse)))
+        sync()
+        (st_c, img_c, mse_c), (st_g, img_g, mse_g) = out
+        frac, rel, diff = pixel_agreement(img_g, img_c)
+        mse_rel = abs(mse_g - mse_c) / abs(mse_c)
+        p_err = max(float(((getattr(st_g, t)[k] - getattr(st_c, t)[k]).abs()
+                           - 1e-5 * getattr(st_c, t)[k].abs()).max())
+                    for t in ("mlp_params", "mlp_momentum")
+                    for k in st_c.mlp_params)
+        h_diff = float((st_g.hash_table - st_c.hash_table).abs().max())
+        label = "lights on" if lights else "as it ships"
+        log(f"card vs CPU port, reference_exact frame_step 32x32 ({label}): "
+            f"{frac:.4f} of pixels within 1e-4 + 1e-3|ref|, mean rel diff "
+            f"{rel:.3e}, max abs diff {diff:.3e}; mse {mse_g:.6f} vs "
+            f"{mse_c:.6f} (rel {mse_rel:.3e}); MLP parameters and momentum "
+            f"max (|diff| - 1e-5|ref|) {p_err:.3e}; hash max abs diff "
+            f"{h_diff:.3e}")
+        check(frac >= SMALL_FRAC_OK and rel <= SMALL_REL_MEAN,
+              f"the card's reference_exact frame ({label}) disagrees")
+        check(mse_rel <= SMALL_MSE_REL and p_err <= SMALL_PARAM_TOL
+              and h_diff <= SMALL_PARAM_TOL,
+              f"the card's reference_exact train step ({label}) disagrees")
+
+
+def slice_checks(dev, dens) -> None:
+    """The slice's small pieces on the card (phase 17c): the raw-grid
+    trilinear fetch against the corner table (bitwise) and the CPU port,
+    render_tiled against render_banded at 32x32 with the cache off and on,
+    a trace from utils.profiling under out/, and utils.debug.nan_check."""
+    from neuralradiancecaching_tpu_torch.io import assets
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.ops import volume
+    from neuralradiancecaching_tpu_torch.render import tiled
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    from neuralradiancecaching_tpu_torch.utils import debug, profiling
+    grid = torch.as_tensor(dens, device=dev)
+    uvw = torch.rand((1 << 20, 3), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev) * 1.4 - 0.2
+    raw = volume.sample_grid_trilinear(grid, uvw)
+    table = volume.sample_corner_trilinear(volume.build_corner_table(grid),
+                                           uvw, grid.shape)
+    cpu = volume.sample_grid_trilinear(grid.cpu(), uvw.cpu())
+    cpu_err = float(((raw.cpu() - cpu).abs() - 1e-5 * cpu.abs()).max())
+    log(f"sample_grid_trilinear on the card, {uvw.shape[0]} samples of the "
+        f"{tuple(grid.shape)} cloud: bitwise equal to the corner table "
+        f"{bool(torch.equal(raw, table))}; against the CPU port max "
+        f"(|diff| - 1e-5|ref|) {cpu_err:.3e}")
+    check(torch.equal(raw, table), "the raw-grid fetch differs from the "
+          "corner table's on the card")
+    check(cpu_err <= 1e-6, "the card's raw-grid fetch disagrees with the CPU")
+
+    band = 8
+    rng = np.random.default_rng(0)
+    s_dens = rng.random((16, 12, 20), dtype=np.float32) * 0.5
+    s_env = assets.synthesize_sky(32, 64)
+    for use_nn in (False, True):
+        cfg = exact_config(small=True, lights=True)
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, use_nn=use_nn))
+        sc = scn.make_scene(cfg, s_dens, s_env, device=dev)
+        state = nrc.init_state(torch.Generator(device=dev).manual_seed(1),
+                               cfg, device=dev)
+        u = to_device(draw_band_uniforms(cfg, 32 // band, 32 * band,
+                                         torch.Generator().manual_seed(6)),
+                      dev)
+        a = tiled.render_tiled(state, sc, None, cfg, band, uniforms=u)
+        b = tiled.render_banded(state, sc, None, cfg, band, uniforms=u)
+        sync()
+        frac, rel, diff = pixel_agreement(a.cpu().numpy(), b.cpu().numpy())
+        log(f"render_tiled vs render_banded 32x32 in {band}-row bands "
+            f"(reference_exact, cache {'on' if use_nn else 'off'}): bitwise "
+            f"{bool(torch.equal(a, b))}, {frac:.4f} of pixels within the "
+            f"bound, max abs diff {diff:.3e}")
+        check(bool(torch.isfinite(a).all()) and frac >= SMALL_FRAC_OK
+              and rel <= SMALL_REL_MEAN,
+              "render_tiled disagrees with render_banded on the card")
+
+    out_dir = REPO / "out" / "chip_smoke_trace"
+    with profiling.trace(str(out_dir)) as prof:
+        volume.sample_grid_trilinear(grid, uvw[:4096])
+        sync()
+    files = sorted(out_dir.glob("*.pt.trace.json"))
+    kernels_ = sum(1 for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"utils.profiling.trace: {[f.name for f in files]} "
+        f"{[f.stat().st_size for f in files]} bytes, {kernels_} device "
+        f"kernels in its table")
+    check(len(files) >= 1 and files[-1].stat().st_size > 0,
+          "utils.profiling.trace wrote no trace")
+
+    x = torch.tensor([0.0, 1.0], device=dev)
+    _ = x / 0.0  # outside the context: no check
+    raised = False
+    try:
+        with debug.nan_check():
+            _ = x * 2.0
+            _ = x / 0.0
+    except FloatingPointError as e:
+        raised = True
+        log(f"utils.debug.nan_check on the card raised: {e}")
+    check(raised, "nan_check let a NaN through on the card")
+
+
 def main() -> int:
-    t_start = time.perf_counter()
+    global T_START
+    T_START = t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2398,6 +2719,7 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
 
+    phase("2: build")
     # -- 2. build K1 and K2 from the sources in the checkout, together -------
     t0 = time.perf_counter()
     kernels.build_all(["fused_mlp", "matmul"])
@@ -2416,6 +2738,7 @@ def main() -> int:
     cfg = slice_config(WIDTH, HEIGHT)
     gen = torch.Generator(device=dev).manual_seed(0)
 
+    phase("3: K1 and K2 vs plain")
     # -- 3. K1 vs plain on random rows, and timings -----------------------
     params_he = he_params(cfg.mlp, gen, dev)
     k1_err = k1_err_f64 = 0.0
@@ -2473,6 +2796,7 @@ def main() -> int:
         f"{fp32_fma_bound_ms(k2_flop, k2_bytes):.4f} ms")
     del a, b
 
+    phase("4-6: config 4 collision")
     # -- 4. scene at full size ---------------------------------------------
     cloud_src = asset_source(assets.CLOUD_FILES)
     env_src = asset_source(assets.ENV_FILES)
@@ -2622,6 +2946,7 @@ def main() -> int:
 
     profile_frame_step(state, train_scene, cfg, train_gen)
 
+    phase("7: card vs CPU")
     # -- 7. the card vs the CPU port at a small size ------------------------
     small = slice_config(32, 32, small=True)
     rng = np.random.default_rng(0)
@@ -2680,11 +3005,13 @@ def main() -> int:
           and float(h_diff.max()) <= h_bound * 1.0001,
           "the card's hash-table step disagrees")
 
+    phase("8: config 5")
     # -- 8. config 5's progressive 1080p frame ------------------------------
     del scene, train_scene, state, res, feats, x_big, img, out
     torch.cuda.empty_cache()
     k1_bf16, legs = progressive_frame(dev, dens, env, params_he)
 
+    phase("9-10: configs 3 and 4")
     # -- 9-10. configs 3 and 4 as they ship --------------------------------
     torch.cuda.empty_cache()
     launches_preset, err, err_f64, launches_dense, launches_dp = \
@@ -2695,28 +3022,43 @@ def main() -> int:
         f"{launches_dense} on the {DENSE_FRAMES} dense/hash config-4 frames, "
         f"{launches_dp} on the {2 * DP_TURNS} data-parallel config-4 frames")
 
+    phase("11: presets card vs CPU")
     # -- 11. the card vs the CPU port: the oracle and config 4's frame, and
     #    config 4's frame with the dense bake and the hash train encode ------
     presets_small_vs_cpu(dev)
     dense_hash_small_vs_cpu(dev)
 
+    phase("17: reference_exact")
+    # -- 17. reference_exact() as it ships at 800x800 and with K1 on its
+    #    query, the card vs the CPU port at 32x32, the raw-grid fetch,
+    #    render_tiled, utils.profiling and utils.debug -----------------------
+    torch.cuda.empty_cache()
+    launches_exact = reference_exact_frames(dev, dens, env)
+    exact_small_vs_cpu(dev)
+    slice_checks(dev, dens)
+
+    phase("12: CLI")
     # -- 12. the CLI at its default sizes, each run in its own process -----
     torch.cuda.empty_cache()
     runs = cli_runs()
 
+    phase("13: banded card vs CPU")
     # -- 13. the card vs the CPU port on the banded branches --------------
     banded_small_vs_cpu(dev)
 
+    phase("14: side workloads")
     # -- 14. the side workloads: image-fit in its own process, mnist ------
     torch.cuda.empty_cache()
     fit = image_fit_run()
     image_fit_small_vs_cpu(dev)
     mnist = mnist_run()
 
+    phase("15: offline tracer")
     # -- 15. the offline path tracer ----------------------------------------
     torch.cuda.empty_cache()
     offline = offline_trace(dev, dens)
 
+    phase("16d-f: data parallel")
     # -- 16d-f. two gloo ranks on the card, the walks' new branches card vs
     #    CPU, the CLI's data-parallel frames under torchrun -----------------
     torch.cuda.empty_cache()
@@ -2736,8 +3078,8 @@ def main() -> int:
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         k1_record("fused_mlp", launches_preset + launches_dense
-                  + launches_dp, k1_err, k1_err_f64, k1_times, k1_flop,
-                  k1_bytes),
+                  + launches_dp + launches_exact, k1_err, k1_err_f64,
+                  k1_times, k1_flop, k1_bytes),
         k1_bf16,
         {"name": "matmul", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/matmul.cu",

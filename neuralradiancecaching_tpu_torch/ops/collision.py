@@ -8,7 +8,8 @@ Counterpart of ``neuralradiancecaching_tpu/ops/collision.py``. For every
 -- the (theta, phi) bilinear corners of the total optical depth to the box
 exit, then the distances at which the cumulative optical depth reaches
 q * tau_total. Sampling a scatter distance is one row gather plus an
-inverse-CDF lookup over the 4 knots (:func:`knots_to_distance`).
+inverse-CDF lookup over the 4 knots (:func:`knots_to_distance`,
+:func:`sample_collision`).
 
 The bake is chunked over directions like the light fields
 (ops/lightfield.py). Cumulative profiles use the fixed summation order of
@@ -105,6 +106,18 @@ def query_collision_rows(field: torch.Tensor, pos: torch.Tensor,
     top = c00 + (c01 - c00) * wp
     bot = c10 + (c11 - c10) * wp
     return top + (bot - top) * wt, rows[..., 4:]
+
+
+def sample_collision(field: torch.Tensor, pos: torch.Tensor, d: torch.Tensor,
+                     u: torch.Tensor, vol: VolumeConfig,
+                     field_shape: Tuple[int, int, int] | None = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A scatter distance along (pos, d) by the exact inverse CDF of the
+    baked profile. u: (...,) uniforms. Returns (t, p_scatter): the distance
+    (conditioned on scattering) and the analytic scatter probability
+    1 - exp(-tau_total); zero-tau rays give (0, 0)."""
+    tau, knots = query_collision_rows(field, pos, d, vol, field_shape)
+    return knots_to_distance(tau, knots, u), -torch.expm1(-tau)
 
 
 def knots_to_distance(tau: torch.Tensor, knots: torch.Tensor,

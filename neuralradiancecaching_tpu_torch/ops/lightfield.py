@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from neuralradiancecaching_tpu_torch.config import VolumeConfig
+from neuralradiancecaching_tpu_torch.config import NRCConfig, VolumeConfig
 from neuralradiancecaching_tpu_torch.ops import envmap as envmap_ops
 from neuralradiancecaching_tpu_torch.ops import phase as phase_ops
 from neuralradiancecaching_tpu_torch.ops import volume as volume_ops
@@ -192,6 +192,12 @@ def segment_transmittance_field(field: torch.Tensor, a: torch.Tensor,
            - query_tau_field(field, b, d, vol, field_shape))
     t = torch.exp(-torch.clamp(tau, min=0.0))
     return torch.where(length > 0.0, t, 1.0)
+
+
+def precompute_for_scene(scene, cfg: NRCConfig) -> torch.Tensor:
+    """The scene's exit-tau field, built from its corner-table density."""
+    return build_transmittance_field(scene.density, cfg.volume,
+                                     steps=cfg.env_map.transmittance_steps)
 
 
 def build_radiance_field(density_field: torch.Tensor,

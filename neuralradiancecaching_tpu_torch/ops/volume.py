@@ -1,12 +1,13 @@
 """Density-volume sampling and ray/box geometry.
 
 Counterpart of ``neuralradiancecaching_tpu/ops/volume.py``: analytic slab
-ray/AABB intersection, the corner table (each base cell's 8 trilinear
-corners in one row, clamp-to-border black), trilinear density fetches from
-it, the fixed-step transmittance quadrature of the reference
-(GetTransmittance, nrc-train.comp:1032-1053), the unbiased ratio-tracking
-transmittance of the ground-truth oracle (its uniforms from the caller) and
-the dilated coarse majorant grid of local-majorant delta tracking.
+ray/AABB intersection, trilinear density fetches from the raw grid (eight
+corner gathers, clamp-to-border black) or from the corner table (each base
+cell's 8 corners in one row, the fast path), the fixed-step transmittance
+quadrature of the reference (GetTransmittance, nrc-train.comp:1032-1053),
+the unbiased ratio-tracking transmittance of the ground-truth oracle (its
+uniforms from the caller) and the dilated coarse majorant grid of
+local-majorant delta tracking.
 Shape-polymorphic over leading batch dimensions; no data-dependent control
 flow.
 """
@@ -60,6 +61,50 @@ def world_to_uvw(pos: torch.Tensor, box_size, box_center) -> torch.Tensor:
     return (pos - _vec(box_center, pos)) / _vec(box_size, pos) + 0.5
 
 
+def _cell(uvw: torch.Tensor, grid_shape):
+    """The base texel i0 (..., 3) int64 and the fractions (..., 3) of the
+    trilinear sample at uvw: texel centres sit at (i + 0.5) / N, so the
+    sample coordinates are uvw * N - 0.5."""
+    t = uvw * _vec(grid_shape, uvw) - 0.5
+    i0f = torch.floor(t)
+    return i0f.to(torch.int64), t - i0f
+
+
+def _lerp8(rows: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """The trilinear sum of the 8 corners (..., 8), in x-major order
+    (dx*4 + dy*2 + dz), weighted by the fractions (..., 3)."""
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
+    w = torch.stack([gx * gy * gz, gx * gy * fz, gx * fy * gz, gx * fy * fz,
+                     fx * gy * gz, fx * gy * fz, fx * fy * gz, fx * fy * fz],
+                    dim=-1)
+    return torch.sum(rows * w, dim=-1)
+
+
+def sample_grid_trilinear(grid: torch.Tensor, uvw: torch.Tensor
+                          ) -> torch.Tensor:
+    """Trilinear fetch from the raw (Nx, Ny, Nz) grid with GL texture
+    semantics, eight corner gathers; corners outside the grid contribute
+    zero (clamp-to-border black, src/main.cpp:126-128). The corners are
+    summed as :func:`sample_corner_trilinear` sums its table row, so the
+    two give the same bits. uvw (..., 3) -> (...,)."""
+    nx, ny, nz = grid.shape
+    i0, frac = _cell(uvw, (nx, ny, nz))
+    flat = grid.reshape(-1)
+    corners = []
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                ix, iy, iz = i0[..., 0] + cx, i0[..., 1] + cy, i0[..., 2] + cz
+                inside = ((ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+                          & (iz >= 0) & (iz < nz))
+                lin = (torch.clamp(ix, 0, nx - 1) * (ny * nz)
+                       + torch.clamp(iy, 0, ny - 1) * nz
+                       + torch.clamp(iz, 0, nz - 1))
+                corners.append(torch.where(inside, flat[lin], 0.0))
+    return _lerp8(torch.stack(corners, dim=-1), frac)
+
+
 def build_corner_table(grid: torch.Tensor) -> torch.Tensor:
     """(Nx, Ny, Nz) density grid -> ((Nx+1)*(Ny+1)*(Nz+1), 8) corner table.
 
@@ -79,38 +124,29 @@ def build_corner_table(grid: torch.Tensor) -> torch.Tensor:
 def sample_corner_trilinear(table: torch.Tensor, uvw: torch.Tensor,
                             grid_shape) -> torch.Tensor:
     """Trilinear fetch from a corner table: ONE row gather per sample, clamp-
-    to-border black for uvw outside [0,1]. uvw (..., 3) -> (...,)."""
+    to-border black for uvw outside [0,1]; the same values as
+    :func:`sample_grid_trilinear` on the grid. uvw (..., 3) -> (...,)."""
     nx, ny, nz = grid_shape
-    t = uvw * _vec((nx, ny, nz), uvw) - 0.5
-    i0f = torch.floor(t)
-    frac = t - i0f
-    i0 = i0f.to(torch.int64)
+    i0, frac = _cell(uvw, (nx, ny, nz))
     hi = torch.as_tensor((nx, ny, nz), device=uvw.device)
     valid = torch.all((i0 >= -1) & (i0 <= hi - 1), dim=-1)
     b = torch.minimum(torch.clamp(i0 + 1, min=0), hi)
     flat = b[..., 0] * ((ny + 1) * (nz + 1)) + b[..., 1] * (nz + 1) + b[..., 2]
-    rows = table[flat]  # (..., 8)
-
-    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
-    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
-    # corner order dx*4 + dy*2 + dz
-    w = torch.stack([gx * gy * gz, gx * gy * fz, gx * fy * gz, gx * fy * fz,
-                     fx * gy * gz, fx * gy * fz, fx * fy * gz, fx * fy * fz],
-                    dim=-1)
-    val = torch.sum(rows * w, dim=-1)
-    return torch.where(valid, val, 0.0)
+    return torch.where(valid, _lerp8(table[flat], frac), 0.0)
 
 
 def density_at(field: torch.Tensor, pos: torch.Tensor,
                cfg: VolumeConfig) -> torch.Tensor:
-    """getDensity (nrc-train.comp:410-413): factor * trilinear fetch from a
-    corner table (:func:`build_corner_table`)."""
-    if field.ndim != 2:
-        raise NotImplementedError("density_at takes a corner table; the raw-"
-                                  "grid sampler is not ported yet")
+    """getDensity (nrc-train.comp:410-413): factor * trilinear fetch.
+
+    ``field`` is a corner table from :func:`build_corner_table` (the fast
+    path) or the raw (Nx, Ny, Nz) grid (:func:`sample_grid_trilinear`),
+    told apart by rank; the two give the same values."""
     uvw = world_to_uvw(pos, cfg.box_size, cfg.box_center)
-    return cfg.density_factor * sample_corner_trilinear(field, uvw,
-                                                        cfg.grid_shape)
+    if field.ndim == 2:
+        return cfg.density_factor * sample_corner_trilinear(
+            field, uvw, cfg.grid_shape)
+    return cfg.density_factor * sample_grid_trilinear(field, uvw)
 
 
 def transmittance(field: torch.Tensor, start: torch.Tensor, end: torch.Tensor,

@@ -91,6 +91,12 @@ def make_mesh(n: Optional[int] = None,
                 device, backend)
 
 
+def default_mesh() -> Mesh:
+    """:func:`make_mesh` with its defaults: every rank the launcher
+    started, each on its card."""
+    return make_mesh()
+
+
 def close_mesh() -> None:
     """Leave the process group (no-op when none is initialized)."""
     if dist.is_initialized():

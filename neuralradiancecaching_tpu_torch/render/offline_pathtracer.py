@@ -113,7 +113,7 @@ def trace(field: torch.Tensor, vol: VolumeConfig, cfg: OfflinePTConfig,
           sun_dir, sun_strength: float, ro: torch.Tensor, rd: torch.Tensor,
           uniforms: torch.Tensor) -> OfflinePTResult:
     """TrueTracePath (:264-346) over a ray batch (N, 3), (N, 3) through the
-    density corner table ``field``; ``uniforms`` (max_bounces, 4, N) from
+    density ``field``, a corner table or the raw grid; ``uniforms`` (max_bounces, 4, N) from
     :func:`draw_offline_uniforms`."""
     n = ro.shape[0]
     dtype, dev = ro.dtype, ro.device

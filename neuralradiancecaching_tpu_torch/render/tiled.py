@@ -28,7 +28,8 @@ env colour (:func:`frame_env_color`), the exact entry optical depth
 which carries the packed entry tau) are computed once per camera pose and
 passed to :func:`render_banded`; the oct bake once per cache state.
 
-Not ported: ``render_tiled`` (the host band loop of the JAX package).
+:func:`render_tiled` is the JAX package's host band loop: the same band
+walks, without the hoists and the pack.
 """
 
 from __future__ import annotations
@@ -171,20 +172,22 @@ def _walk_tensor(u) -> torch.Tensor:
 
 
 def _walk_bands(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
-                rd_b: torch.Tensor, entry_tau: torch.Tensor,
+                rd_b: torch.Tensor, entry_tau: Optional[torch.Tensor],
                 generator: Optional[torch.Generator], uniforms=None):
     """The collect walk (render_band_deferred with the deferred shade) over
     (n_bands, band_n) rays as one batched walk; band i walks with
     uniforms[i], the bands' draws stacked here. Lane for lane the per-band
     walks: the NN-mode collision and delta collect walks have no
     cross-lane step -- unless the march split packs each band's live
-    lanes, and then the bands walk one by one."""
+    lanes, and then the bands walk one by one. entry_tau None: the walk
+    computes each ray's own."""
     n_bands, band_n = ro_b.shape[:2]
     if len(pathtrace.walk_uniform_shapes(cfg, band_n, use_nn=True,
                                          collect_events=True)) > 1:
+        et_b = [None] * n_bands if entry_tau is None else entry_tau
         return _cat_bands([pathtrace.render_band_deferred(
             scene, cfg, ro_i, rd_i, generator, entry_tau=et_i, uniforms=u)
-            for ro_i, rd_i, et_i, u in zip(ro_b, rd_b, entry_tau,
+            for ro_i, rd_i, et_i, u in zip(ro_b, rd_b, et_b,
                                            _per_band(uniforms, n_bands))])
     shape = (n_bands, *pathtrace.walk_uniform_shapes(cfg, band_n,
                                                      use_nn=True)[0])
@@ -201,7 +204,8 @@ def _walk_bands(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
     u = u.permute(1, 2, 0, 3).reshape(shape[1], shape[2], -1)
     return pathtrace.render_band_deferred(
         scene, cfg, ro_b.reshape(-1, 3), rd_b.reshape(-1, 3), None,
-        entry_tau=entry_tau.reshape(-1), uniforms=u)
+        entry_tau=None if entry_tau is None else entry_tau.reshape(-1),
+        uniforms=u)
 
 
 def _plain_bands(scene: Scene, generator: Optional[torch.Generator],
@@ -228,10 +232,11 @@ def walk_rows(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
               generator: Optional[torch.Generator], uniforms=None):
     """The banded walk over (bands, band_n) rays with the query (and, when
     deferred, the shade) left to the finish: the collect walk as one batch
-    (entry_tau: (bands, band_n), :func:`rays_entry_tau` of the rays), else
-    band by band, since the in-walk shade's packs and the reference
-    march's repack take caps per band. uniforms: None or one entry per
-    band. Returns render_band_deferred's outputs over all bands' lanes."""
+    (entry_tau: (bands, band_n), :func:`rays_entry_tau` of the rays, or
+    None for the walk's own), else band by band, since the in-walk shade's
+    packs and the reference march's repack take caps per band. uniforms:
+    None or one entry per band. Returns render_band_deferred's outputs over
+    all bands' lanes."""
     if pathtrace.shade_deferred(cfg):
         return _walk_bands(scene, cfg, ro_b, rd_b, entry_tau, generator,
                            uniforms)
@@ -239,6 +244,39 @@ def walk_rows(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
         scene, cfg, ro_i, rd_i, generator, uniforms=u)
         for ro_i, rd_i, u in zip(ro_b, rd_b,
                                  _per_band(uniforms, ro_b.shape[0]))])
+
+
+def render_tiled(state: nrc.NRCState, scene: Scene,
+                 generator: Optional[torch.Generator], cfg: NRCConfig,
+                 band_rows: int = 128, uniforms=None) -> torch.Tensor:
+    """One frame (H, W, 3) by a host loop over ``band_rows``-row bands
+    (the JAX package's ``render_tiled``): the cache off, ``render_image``
+    band by band; the cache on, each band's walk with the query (and the
+    shade, when deferred) left to one bake and one frame-global finish
+    over the concatenated bands. No pose-static hoist and no live pack:
+    each walk computes its own entry tau, the finish its own env colour.
+
+    uniforms: None (drawn from ``generator``) or one entry per band in
+    band order, band key ``fold_in(key, y0 * band_rows)`` -- what
+    :func:`render_banded` takes for its unpacked bands at spp 1. Raises
+    ``ValueError`` when the height is not a multiple of band_rows, or for
+    spp > 1 with the cache on (:func:`render_banded` takes that)."""
+    h, w = cfg.render.height, cfg.render.width
+    if h % band_rows:
+        raise ValueError(f"height {h} is not a multiple of band_rows "
+                         f"{band_rows}")
+    if not cfg.render.use_nn:
+        return _plain_bands(scene, generator, cfg, band_rows,
+                            uniforms).reshape(h, w, 3)
+    if cfg.render.spp != 1:
+        raise ValueError("render_tiled's cached path renders spp=1; "
+                         "render_banded takes spp > 1")
+    ro, rd = _rays(scene, cfg)
+    n_bands = h // band_rows
+    parts = walk_rows(scene, cfg, ro.reshape(n_bands, -1, 3),
+                      rd.reshape(n_bands, -1, 3), None, generator, uniforms)
+    return _finish(state, nrc.bake(state, cfg), scene, *parts,
+                   cfg).reshape(h, w, 3)
 
 
 def _bands_program(scene: Scene, generator: Optional[torch.Generator],

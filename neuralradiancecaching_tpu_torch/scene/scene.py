@@ -53,6 +53,12 @@ class Scene:
     coll_field: torch.Tensor    # collision rows, or a placeholder row
 
 
+def lightfield_row_width() -> int:
+    """The width of an exit-tau field row: its 4 corner-packed taus
+    (ops/lightfield.py)."""
+    return 4
+
+
 def dir_from_zenith_azimuth(zenith: float, azimuth: float) -> np.ndarray:
     """DirLight.cpp:5-14: direction the light TRAVELS."""
     d = np.array([math.cos(zenith) * math.cos(azimuth), math.sin(zenith),
@@ -121,7 +127,7 @@ def make_scene(cfg: NRCConfig, density: torch.Tensor | np.ndarray,
                             lightfield.build_transmittance_field, corner,
                             cfg.volume, steps=cfg.env_map.transmittance_steps)
     else:
-        env_t_field = placeholder(4)
+        env_t_field = placeholder(lightfield_row_width())
     if cfg.env_map.transmittance_mode == "premultiplied":
         env_l_field = timed("env_l_field", lightfield.build_radiance_field,
                             corner, env_image, cfg.volume,

@@ -316,8 +316,9 @@ def test_port_never_imports_jax():
     checkpoint) and progressive runs, both again data-parallel on a gloo
     group of one (``--mesh 1``: ``dp_train_banded_frame``, the per-shard
     cap probe), the ``parallel`` package and its job runner, its mnist (on
-    labels written here) and image-fit runs, and the offline path tracer
-    on the CPU load no
+    labels written here) and image-fit runs, the offline path tracer (on
+    the corner table and on the raw grid), ``render_tiled`` and ``utils``
+    (``debug``, ``log``, ``profiling``) on the CPU load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -425,6 +426,17 @@ def test_port_never_imports_jax():
                         cfg.volume, ocfg, [0.0, -1.0, 0.0], 1.0, ro, rd,
                         opt.draw_offline_uniforms(g, ocfg, 8))
         assert bool(torch.isfinite(res.color).all())
+        from neuralradiancecaching_tpu_torch.utils import (debug, log,
+                                                           profiling)
+        timer = profiling.PhaseTimer()
+        with timer.phase("render_tiled", sync_on=st.hash_table):
+            img = tiled.render_tiled(st, sc, g, ref, 4)
+        debug.assert_all_finite({"image": img}, "render_tiled")
+        with debug.nan_check():
+            res = opt.trace(torch.tensor(dens), cfg.volume, ocfg,
+                            [0.0, -1.0, 0.0], 1.0, ro, rd,
+                            opt.draw_offline_uniforms(g, ocfg, 8))
+        log.Log.info(timer.summary())
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

@@ -125,8 +125,10 @@ card vs the CPU port on one such frame at 32x32, as it ships and with the
 lights on; c, the raw-grid fetch against the corner table on the card
 (bitwise) and the CPU port, ``render_tiled`` against ``render_banded`` at
 32x32 with the cache off and on, a ``utils.profiling.trace`` file under
-the git-ignored ``out/`` and ``utils.debug.nan_check`` raising on a NaN).
-Launch counts are
+the git-ignored ``out/`` and ``utils.debug.nan_check`` raising on a NaN);
+the port's bench (phase 18: ``bench_torch.py`` in its own process at
+480x270 with the quality legs off, every rate of its result line finite
+and positive, K1 bf16 launched in its headline loop). Launch counts are
 reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
@@ -203,10 +205,10 @@ PRESET_SIDE = 800
 # warm-up (each a few seconds: a band issues about a whole frame's launches;
 # one, and no profile, to keep the run inside its time limit)
 BANDED_FRAMES = 1
-# the JAX bench's quality legs (bench.py:596-810): 256^2 ground-truth legs,
-# the oracle twins at 2 x 128 spp, the no-cache collision and the NN twins
-# at 2 x 64 spp, the NN leg after 400 train steps at query cap 0.375
-Q_SIDE, Q_TRAIN_STEPS, Q_GT_SPP, Q_QUERY_CAP = 256, 400, 64, 0.375
+# the port's bench's ground-truth legs (bench.py:755-829): 256^2, the
+# oracle twins at 2 x 128 spp, the no-cache collision and the NN twins at
+# 2 x 64 spp, the NN leg after 400 train steps
+Q_SIDE, Q_TRAIN_STEPS, Q_GT_SPP = 256, 400, 64
 # the CLI's runs (each its own process; a run's time limit) and the
 # branches of render_banded held card against CPU: (sampler, cache on,
 # spp, packed, light transmittance mode)
@@ -248,6 +250,15 @@ OFFLINE_SUN, OFFLINE_FRAMES = (0.0, -1.0, 0.0), 2
 # packs act above 1024 lanes)
 DP_TURNS, DP_MSE_REL, DP_SMALL_BAND, DP_RANKS_TIMEOUT = 2, 1e-5, 6, 300
 WALK_SIDE = 48
+# the port's bench in its own process at a cut (phase 18): 480x270 in
+# 30-row bands, 2 headline frames, 4 online and 3 moving frames, no quality
+# legs; its time limit; the rate keys that must be finite and positive
+BENCH_CUT = {"BENCH_WIDTH": "480", "BENCH_HEIGHT": "270", "BENCH_FRAMES": "2",
+             "BENCH_ONLINE_FRAMES": "4", "BENCH_MOVING_FRAMES": "3",
+             "BENCH_QUALITY": "0"}
+BENCH_TIMEOUT = 300
+BENCH_RATES = ("value", "train_steps_per_s", "online_fps_train_every_frame",
+               "online_fps", "online_fps_moving", "mrays_s_spp2")
 # the card's name and power limit, set once the card is found: every new
 # phase's summary line carries it
 CARD = ""
@@ -601,11 +612,6 @@ def to_device(tree, device):
     return type(tree)(*[to_device(x, device) for x in tree])
 
 
-def asset_source(cands) -> str:
-    found = next((p for p in cands if os.path.exists(p)), None)
-    return f"file {found}" if found else "deterministic synthesized stand-in"
-
-
 def state_to(state, device):
     """A state dataclass (NRCState, ImageFitState) with every tensor moved
     to ``device``."""
@@ -617,29 +623,19 @@ def state_to(state, device):
                           for f in dataclasses.fields(state)})
 
 
-def round64(x: float) -> float:
-    """Round up to the bench's 1/64 cap granularity (bench.py:202)."""
-    return float(np.ceil(x / 0.015625) * 0.015625)
-
-
 def progressive_config(width: int, height: int, small: bool = False,
                        field_dtype: str = "bfloat16"):
-    """Config 5 with the JAX bench's production settings (bench.py:86-293):
-    1 spp, live-tau threshold 0.005, the slot-0-dense shade, the bf16 query
-    (f32 when ``field_dtype`` is f32), plus the fused query MLP so K1 lies
-    on the path; the caps come from :func:`probe_caps`. ``small`` cuts the
-    scene and the train batch to the tests' size."""
-    from neuralradiancecaching_tpu_torch import config as cfg_mod
+    """The port's bench config (``bench_torch.bench_config``: config 5 with
+    ``bench.py``'s production settings and the fused query MLP) at 1 spp,
+    with f32 fields and an f32 query when ``field_dtype`` is f32; the caps
+    come from ``bench_torch.probe_caps``. ``small`` cuts the scene and the
+    train batch to the tests' size."""
+    import bench_torch
     r = dataclasses.replace
-    cfg = cfg_mod.progressive_1080p_config()
-    bf16 = field_dtype == "bfloat16"
-    cfg = r(cfg, camera=r(cfg.camera, aspect=width / height),
-            render=r(cfg.render, width=width, height=height, spp=1,
-                     use_nn=True, live_tau_threshold=0.005,
-                     shade_slot0_dense=True),
-            mlp=r(cfg.mlp, fused_inference=True,
-                  inference_dtype="bfloat16" if bf16 else "float32"),
-            volume=r(cfg.volume, field_dtype=field_dtype))
+    cfg = bench_torch.bench_config(width, height, 1)
+    if field_dtype != "bfloat16":
+        cfg = r(cfg, mlp=r(cfg.mlp, inference_dtype=field_dtype),
+                volume=r(cfg.volume, field_dtype=field_dtype))
     if small:
         cfg = r(cfg, path=r(cfg.path, collision_field_steps=8),
                 volume=r(cfg.volume, grid_shape=(16, 12, 20),
@@ -648,42 +644,6 @@ def progressive_config(width: int, height: int, small: bool = False,
                 train=r(cfg.train, train_width=16, train_height=16,
                         target_bounces=16))
     return cfg
-
-
-def probe_caps(scene, cfg, gen):
-    """The JAX bench's cap probes (bench.py:161-268) on the port: the
-    query fraction of an NN walk over every stride-th ray, the exact live
-    fraction of the full frame, the mean event count per ray and its
-    slot-0 part from a collect-mode walk, each rounded up to 1/64 with the
-    bench's margins; with the pack on, the query is uncapped. Returns
-    (cfg with the caps, the probes)."""
-    from neuralradiancecaching_tpu_torch.render import pathtrace, tiled
-    from neuralradiancecaching_tpu_torch.scene import camera
-    w, h = cfg.render.width, cfg.render.height
-    stride = max(1, (w * h) // (w * 64))
-    ro, rd = camera.pixel_rays(scene.camera, w, h)
-    ro, rd = ro[::stride], rd[::stride]
-    res = pathtrace.trace_path(scene, cfg, ro, rd, gen, use_nn=True)
-    qfrac = float((res.query_weight > 0).float().mean())
-    live_frac = tiled.live_fraction(scene, cfg)
-    _, ev = pathtrace.trace_path_collision(scene, cfg, ro, rd, gen,
-                                           use_nn=True, collect_events=True)
-    valid = ev[..., 6] > 0
-    ev_mean = float(valid.sum(dim=1).float().mean())
-    ev0_mean = float(valid[:, 0].float().mean())
-    k_slots = float(ev.shape[1])
-    cap_mean = ev_mean - ev0_mean if cfg.render.shade_slot0_dense else ev_mean
-    shade_cap = min(k_slots, round64(cap_mean * 1.05 + 0.01))
-    pack = min(1.0, round64(live_frac * 1.05 + 0.005))
-    query_cap = 1.0 if pack > 0.0 else min(1.0, round64(qfrac * 1.05 + 0.005))
-    r = dataclasses.replace
-    cfg = r(cfg, render=r(cfg.render, query_cap_fraction=query_cap,
-                          shade_cap_fraction=shade_cap,
-                          live_pack_fraction=pack))
-    return cfg, dict(stride=stride, probe_rays=ro.shape[0], qfrac=qfrac,
-                     live_frac=live_frac, ev_mean=ev_mean, ev0_mean=ev0_mean,
-                     k_slots=k_slots, query_cap_fraction=query_cap,
-                     shade_cap_fraction=shade_cap, live_pack_fraction=pack)
 
 
 def time_k1(params, x, mlp_cfg) -> dict:
@@ -909,12 +869,13 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
         f"{[round(m, 5) for m in warm]}")
 
     # -- 8c. the bench's probes and caps ------------------------------------
+    import bench_torch
     t0 = time.perf_counter()
-    cfg, probes = probe_caps(scene, cfg,
-                             torch.Generator(device=dev).manual_seed(99))
+    cfg, probes = bench_torch.probe_caps(cfg, scene, dev)
     log(f"probes and caps ({time.perf_counter() - t0:.3f} s): "
-        f"{json.dumps(probes)}")
-    check(0.0 < probes["live_pack_fraction"] <= 1.0, "no live rays")
+        f"{json.dumps(probes._asdict())}, query cap "
+        f"{cfg.render.query_cap_fraction}")
+    check(0.0 < probes.pack <= 1.0, "no live rays")
 
     # -- 8d. pose-static hoists ---------------------------------------------
     env_rgb = stage("frame_env_color (once per pose)",
@@ -925,7 +886,7 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     n_live = int(pack.val.sum())
     log(f"live-ray pack: {n_live} live rays of {n_pix}, packed to "
         f"{n_packed} lanes ({pack.ro_p.shape[0]} bands of {BAND_ROWS} rows)")
-    check(n_live == round(probes["live_frac"] * n_pix),
+    check(n_live == round(probes.live_frac * n_pix),
           "the pack dropped live rays")
 
     # -- 8e. K1's bf16 mode vs its plain version ----------------------------
@@ -1064,55 +1025,17 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
 
 
 def quality_legs(dev, scene, cfg, state) -> dict:
-    """The JAX bench's ground-truth quality legs (bench.py:596-810) on the
-    card, at its protocol: config 5 with its production settings rendered
-    through ``render_only_step`` at 256^2 on config 5's scene (the bench's
-    scene keeps config 5's camera), the unbiased oracle (delta sampler,
-    ratio-tracked path and env transmittance, MC in-scatter) in twin
-    accumulations of 2 x 128 spp, the shipped no-cache collision render in
-    twins of 2 x 64 spp, and the NN render (query cap 0.375) after
-    Q_TRAIN_STEPS more train steps in twins of 2 x 64 spp; every pair held
-    to the oracle's twins by the port's own utils/metrics.py
-    (noise_subtracted_bias_err: the noise-subtracted relative RMSE, its
-    noise floor and its +-2 sigma interval). Returns the legs."""
+    """The port's bench's ground-truth legs (``bench_torch``'s
+    ``_ground_truth_legs``, bench.py:755-829) on the card at Q_SIDE^2 on
+    config 5's scene (the bench's scene keeps config 5's camera), after
+    Q_TRAIN_STEPS more train steps: the unbiased oracle in twins of
+    2 x Q_GT_SPP frames, the shipped no-cache collision render and the NN
+    render (``bench_torch.quality_config``: query cap 0.375) in twins of
+    Q_GT_SPP, every pair held to the oracle's twins by the port's
+    ``utils/metrics.py``; not the spp-2 twins. Returns the legs."""
+    import bench_torch
     from neuralradiancecaching_tpu_torch.render import frame
-    from neuralradiancecaching_tpu_torch.utils import metrics
-    r = dataclasses.replace
-    qcfg = r(cfg, camera=r(cfg.camera, aspect=1.0),
-             render=r(cfg.render, width=Q_SIDE, height=Q_SIDE, use_nn=True,
-                      query_cap_fraction=Q_QUERY_CAP))
-    gcfg = r(qcfg, render=r(qcfg.render, use_nn=False))
-    ocfg = r(gcfg, path=r(gcfg.path, sampler="delta",
-                          transmittance_mode="ratio"),
-             env_map=r(gcfg.env_map, in_scatter_mode="mc",
-                       transmittance_mode="ratio"))
-    ncfg = r(gcfg, render=r(gcfg.render, use_nn=True))
-    times: dict[str, float] = {}
-
-    def accum(c, spp, seed, st, tag):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        sync()
-        t0 = time.perf_counter()
-        acc = None
-        for _ in range(spp):
-            img = frame.render_only_step(st, scene, gen, c)
-            acc = img if acc is None else acc + img
-        out = (acc / spp).cpu().numpy().astype(np.float64)
-        times[tag] = times.get(tag, 0.0) + time.perf_counter() - t0
-        check(out.shape == (Q_SIDE, Q_SIDE, 3) and bool(np.isfinite(out)
-                                                        .all()),
-              f"quality leg {tag}: image {out.shape} not finite")
-        return out
-
-    torch.cuda.reset_peak_memory_stats()
-    o1 = accum(ocfg, 2 * Q_GT_SPP, 21000, state, "oracle")
-    o2 = accum(ocfg, 2 * Q_GT_SPP, 25000, state, "oracle")
-    peak_oracle = torch.cuda.max_memory_allocated()
-    profile_call("oracle render_only_step (256^2)", lambda:
-                 frame.render_only_step(state, scene, torch.Generator(
-                     device=dev).manual_seed(1), ocfg))
-    g1 = accum(gcfg, Q_GT_SPP, 20000, state, "gt")
-    g2 = accum(gcfg, Q_GT_SPP, 24000, state, "gt")
+    qcfg = bench_torch.quality_config(cfg, Q_SIDE)
     gen = torch.Generator(device=dev).manual_seed(1000)
     sync()
     t0 = time.perf_counter()
@@ -1121,42 +1044,34 @@ def quality_legs(dev, scene, cfg, state) -> dict:
         state, mse = frame.train_only_step(state, scene, gen, cfg)
         mses.append(mse)
     sync()
-    times["train"] = time.perf_counter() - t0
+    train_s = time.perf_counter() - t0
     mses = [float(m) for m in mses]
     check(bool(np.isfinite(mses).all()), "quality-leg train mse not finite")
-    n1 = accum(ncfg, Q_GT_SPP, 20000, state, "nn")
-    n2 = accum(ncfg, Q_GT_SPP, 24000, state, "nn")
-    om = (o1 + o2).mean() / 2
-    gt_b, gt_f, gt_lo, gt_hi = metrics.noise_subtracted_bias_err(g1, g2, o1,
-                                                                 o2)
-    nn_b, nn_f, nn_lo, nn_hi = metrics.noise_subtracted_bias_err(n1, n2, o1,
-                                                                 o2)
-    legs = {
-        "ground_truth_rmse_noise_sub": gt_b, "ground_truth_lo2s": gt_lo,
-        "ground_truth_hi2s": gt_hi, "ground_truth_noise_floor": gt_f,
-        "ground_truth_mean_delta": float((g1 + g2).mean() / 2 - om) / om,
-        "nn_vs_ground_truth_rmse_noise_sub": nn_b, "nn_vs_ground_truth_lo2s":
-        nn_lo, "nn_vs_ground_truth_hi2s": nn_hi,
-        "nn_vs_ground_truth_noise_floor": nn_f,
-        "nn_vs_ground_truth_mean_delta": float((n1 + n2).mean() / 2 - om)
-        / om,
-        "oracle_mean": float(om), "ground_truth_spp": Q_GT_SPP,
-        "oracle_spp": 2 * Q_GT_SPP, "train_steps": Q_TRAIN_STEPS,
-        "size": Q_SIDE, "query_cap_fraction": Q_QUERY_CAP}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    legs = bench_torch._ground_truth_legs(qcfg, scene, state, dev, Q_GT_SPP,
+                                          Q_SIDE, spp2=False)
+    legs_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _, ocfg = bench_torch.ground_truth_configs(qcfg, Q_SIDE)
+    profile_call(f"oracle render_only_step ({Q_SIDE}^2)", lambda:
+                 frame.render_only_step(state, scene, torch.Generator(
+                     device=dev).manual_seed(1), ocfg))
+    legs.update(train_steps=Q_TRAIN_STEPS, size=Q_SIDE,
+                query_cap_fraction=qcfg.render.query_cap_fraction)
     log(f"quality legs {Q_SIDE}x{Q_SIDE} (bench protocol): " + json.dumps(
         legs))
-    log(f"  seconds: oracle twins {times['oracle']:.3f} "
-        f"({2 * 2 * Q_GT_SPP} frames, {times['oracle'] * 1e3 / (4 * Q_GT_SPP):.3f}"
-        f" ms/frame), collision twins {times['gt']:.3f}, {Q_TRAIN_STEPS} "
-        f"train steps {times['train']:.3f} ({times['train'] * 1e3 / Q_TRAIN_STEPS:.3f}"
-        f" ms/step, mse first 8 {np.mean(mses[:8]):.5f}, last 8 "
-        f"{np.mean(mses[-8:]):.5f}), NN twins {times['nn']:.3f}; oracle peak "
-        f"memory {peak_oracle / 2**30:.3f} GiB")
+    log(f"  seconds: {Q_TRAIN_STEPS} train steps {train_s:.3f} "
+        f"({train_s * 1e3 / Q_TRAIN_STEPS:.3f} ms/step, mse first 8 "
+        f"{np.mean(mses[:8]):.5f}, last 8 {np.mean(mses[-8:]):.5f}); the "
+        f"legs' twins {legs_s:.3f} (oracle 4 x {Q_GT_SPP}, collision and NN "
+        f"2 x {Q_GT_SPP} frames each); peak memory {peak / 2**30:.3f} GiB")
     check(all(np.isfinite(v) for v in legs.values()), "quality legs not "
           "finite")
     # a gross check of the two samplers against each other (the cache
     # leg depends on the training and is only measured)
-    check(om > 0.0 and abs(legs["ground_truth_mean_delta"]) < 0.25,
+    check(legs["oracle_mean"] > 0.0
+          and abs(legs["ground_truth_mean_delta"]) < 0.25,
           "the collision render's mean strays from the oracle's by more "
           "than 25%")
     return legs
@@ -2141,21 +2056,21 @@ def dp_progressive(dev, scene, cfg, state, env_rgb, pack, probes) -> int:
              "event_mean": rep.event_mean.tolist(),
              "live_frac": rep.live_frac.tolist(),
              "query_cap": rep.query_cap, "shade_cap": rep.shade_cap,
-             "phase_8c": {k: probes[k] for k in (
+             "phase_8c": {k: getattr(probes, k) for k in (
                  "qfrac", "live_frac", "ev_mean", "ev0_mean",
-                 "query_cap_fraction", "shade_cap_fraction")}}
+                 "shade_cap")}}
     log(f"probe_dp_caps at world size 1 over the pack: {json.dumps(probe)}")
     # one shard is the frame: the exact live fraction is phase 8c's, the
     # sampled query and event means match its own (other draws) within
     # their spread, and the DP shade cap also covers slot 0
-    check(abs(rep.live_frac[0] - probes["live_frac"]) <= 1e-6,
+    check(abs(rep.live_frac[0] - probes.live_frac) <= 1e-6,
           "probe_dp_caps' live fraction differs from the frame's")
-    check(abs(rep.query_frac[0] - probes["qfrac"])
-          <= 0.05 * probes["qfrac"] + 0.005
-          and abs(rep.event_mean[0] - probes["ev_mean"])
-          <= 0.05 * probes["ev_mean"] + 0.005,
+    check(abs(rep.query_frac[0] - probes.qfrac)
+          <= 0.05 * probes.qfrac + 0.005
+          and abs(rep.event_mean[0] - probes.ev_mean)
+          <= 0.05 * probes.ev_mean + 0.005,
           "probe_dp_caps' fractions stray from phase 8c's probes")
-    check(cfg_t.render.shade_cap_fraction >= probes["shade_cap_fraction"],
+    check(cfg_t.render.shade_cap_fraction >= probes.shade_cap,
           "probe_dp_caps' shade cap is below the single-device one")
     DP_LOG["probe_dp_caps 1080p"] = probe
     return res["k1_launches"]
@@ -2408,6 +2323,39 @@ def dp_cli_runs() -> dict:
     DP_LOG["cli"] = {k: {f: v for f, v in run.items() if f != "stdout"}
                      for k, run in out.items()}
     return out
+
+
+def bench_run() -> None:
+    """The port's bench as a user runs it (phase 18): ``bench_torch.py`` in
+    its own process at BENCH_CUT. It must exit 0 with one JSON line last,
+    every rate of BENCH_RATES finite and positive and K1's bf16 mode
+    launched in its headline loop; the line is logged."""
+    sync()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "bench_torch.py")],
+                          cwd=REPO, env=dict(os.environ, **BENCH_CUT),
+                          capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"  bench: {line}")
+    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines) and lines[-1].startswith("{"),
+          "bench_torch.py printed no result line")
+    res = json.loads(lines[-1])
+    for key in BENCH_RATES:
+        v = res.get(key)
+        check(isinstance(v, (int, float)) and np.isfinite(v) and v > 0,
+              f"bench_torch.py {key} = {v}")
+    check(res.get("k1_bf16_launches", 0) > 0, "bench_torch.py's headline "
+          "loop launched no K1 bf16")
+    check(res.get("fused_inference") is True, "bench_torch.py ran without "
+          "the fused query MLP")
+    log(f"bench_torch.py at {res['width']}x{res['height']} ({wall:.1f} s "
+        f"process wall) [{CARD}]: {json.dumps(res)}")
 
 
 def exact_config(small: bool = False, lights: bool = False,
@@ -2798,10 +2746,8 @@ def main() -> int:
 
     phase("4-6: config 4 collision")
     # -- 4. scene at full size ---------------------------------------------
-    cloud_src = asset_source(assets.CLOUD_FILES)
-    env_src = asset_source(assets.ENV_FILES)
-    dens = assets.load_cloud()
-    env = assets.load_env_map()
+    import bench_torch
+    dens, env, cloud_src, env_src = bench_torch.load_assets()
     log(f"cloud {dens.shape}: {cloud_src}; env {env.shape}: {env_src}")
     torch.cuda.reset_peak_memory_stats()
     timings: dict[str, float] = {}
@@ -3068,6 +3014,10 @@ def main() -> int:
     log("dp: " + json.dumps(DP_LOG))
     from neuralradiancecaching_tpu_torch.parallel import close_mesh
     close_mesh()
+
+    phase("18: bench")
+    # -- 18. the port's bench in its own process at a cut -----------------
+    bench_run()
     log("quality: " + json.dumps(legs))
     log("cli: " + json.dumps({k: {f: v for f, v in run.items()
                                   if f != "stdout"}

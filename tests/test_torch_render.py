@@ -317,8 +317,9 @@ def test_port_never_imports_jax():
     group of one (``--mesh 1``: ``dp_train_banded_frame``, the per-shard
     cap probe), the ``parallel`` package and its job runner, its mnist (on
     labels written here) and image-fit runs, the offline path tracer (on
-    the corner table and on the raw grid), ``render_tiled`` and ``utils``
-    (``debug``, ``log``, ``profiling``) on the CPU load no
+    the corner table and on the raw grid), ``render_tiled``, ``utils``
+    (``debug``, ``log``, ``profiling``) and the port's bench
+    (``bench_torch.run_bench``, every leg at a toy size) on the CPU load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -437,6 +438,20 @@ def test_port_never_imports_jax():
                             [0.0, -1.0, 0.0], 1.0, ro, rd,
                             opt.draw_offline_uniforms(g, ocfg, 8))
         log.Log.info(timer.summary())
+        import os
+        import bench_torch
+        os.environ.update(
+            BENCH_WIDTH="16", BENCH_HEIGHT="16", BENCH_BAND="4",
+            BENCH_FRAMES="1", BENCH_TRAIN_STEPS="1", BENCH_ONLINE_FRAMES="1",
+            BENCH_MOVING_FRAMES="1", BENCH_QUALITY_SIZE="8",
+            BENCH_QUALITY_TRAIN="1", BENCH_QUALITY_SPP="2",
+            BENCH_QUALITY_REF_SPP="2", BENCH_QUALITY_GT_SPP="2",
+            BENCH_QUALITY_GT_SIZE="8", BENCH_QUALITY_TRACK_STEPS="1",
+            BENCH_QUALITY_CADENCE_FRAMES="1", BENCH_TWIN_CACHE="0")
+        bench_torch.CACHE_POINTS, bench_torch.CACHE_CHUNK = 32, 16
+        bench_torch.CACHE_SAMPLES = bench_torch.TRAIN_TIMING_STEPS = 1
+        res = bench_torch.run_bench("cpu")
+        assert res["fused_inference"] and res["value"] > 0, res
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

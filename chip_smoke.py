@@ -52,7 +52,10 @@ density grid, fields at (32, 24, 40) voxels):
   quadrature light and env transmittance, MC in-scatter through the dense
   per-slot shade, momentum SGD and plain hash SGD), once more with
   ``fused_inference`` (K1 f32 on its query); with it the raw-grid
-  trilinear fetch, ``tiled.render_tiled`` and ``utils/``.
+  trilinear fetch, ``tiled.render_tiled`` and ``utils/``;
+- the host library ``csrc/nrcio.cpp`` (``io/native.py``), built with the
+  machine's host C++ compiler: a 4096x2048 RLE ``.hdr`` of the synthesized
+  sky decoded natively and by the plain Python decode, bit for bit.
 
 It holds every hand-written kernel to its plain PyTorch version -- K1
 (csrc/fused_mlp.cu, the query MLP on the tensor cores with split-bf16
@@ -128,7 +131,11 @@ lights on; c, the raw-grid fetch against the corner table on the card
 the git-ignored ``out/`` and ``utils.debug.nan_check`` raising on a NaN);
 the port's bench (phase 18: ``bench_torch.py`` in its own process at
 480x270 with the quality legs off, every rate of its result line finite
-and positive, K1 bf16 launched in its headline loop). Launch counts are
+and positive, K1 bf16 launched in its headline loop); the host library
+(phase 19: the build, the native and the plain decode of a 4096x2048 RLE
+``.hdr`` written from ``assets.synthesize_sky(2048, 4096)``, held bit for
+bit and to the sky at RGBE precision, logged as host times on the card's
+machine). Launch counts are
 reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
@@ -259,6 +266,9 @@ BENCH_CUT = {"BENCH_WIDTH": "480", "BENCH_HEIGHT": "270", "BENCH_FRAMES": "2",
 BENCH_TIMEOUT = 300
 BENCH_RATES = ("value", "train_steps_per_s", "online_fps_train_every_frame",
                "online_fps", "online_fps_moving", "mrays_s_spp2")
+# the host library (phase 19): the (height, width) of the RLE .hdr written
+# from the synthesized sky and decoded natively and by the plain decode
+HDR_SHAPE = (2048, 4096)
 # the card's name and power limit, set once the card is found: every new
 # phase's summary line carries it
 CARD = ""
@@ -2358,6 +2368,103 @@ def bench_run() -> None:
         f"process wall) [{CARD}]: {json.dumps(res)}")
 
 
+def to_rgbe(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) float32 -> (H, W, 4) uint8 RGBE (Radiance's float2rgbe:
+    mantissas scaled to the largest channel's power of two)."""
+    m = rgb.max(axis=-1)
+    mant, e = np.frexp(m)
+    lit = m > 1e-32
+    scale = np.where(lit, mant * 256.0 / np.where(lit, m, 1.0), 0.0)
+    rgbe = np.empty(rgb.shape[:2] + (4,), np.uint8)
+    rgbe[..., :3] = (rgb * scale[..., None]).astype(np.uint8)
+    rgbe[..., 3] = np.where(lit, e + 128, 0)
+    return rgbe
+
+
+def rle_encode(rgbe: np.ndarray) -> tuple[bytes, int, int]:
+    """New-style RLE scanlines of (H, W, 4) RGBE: per channel, stretches of
+    3 or more equal bytes as runs (<= 127 per packet), the bytes between
+    them as literals (<= 128 per packet). Returns (payload, runs,
+    literals)."""
+    h, w, _ = rgbe.shape
+    head = bytes([2, 2, w >> 8, w & 0xFF])
+    out, runs, literals = [], 0, 0
+    for y in range(h):
+        out.append(head)
+        for c in range(4):
+            v = rgbe[y, :, c]
+            starts = np.flatnonzero(np.r_[True, v[1:] != v[:-1]])
+            lens = np.diff(np.r_[starts, w])
+            long = lens >= 3
+            run_a, run_b = starts[long], starts[long] + lens[long]
+            # the literal before each run and after the last
+            lit_a, lit_b = np.r_[0, run_b], np.r_[run_a, w]
+            for i in range(len(lit_a)):
+                for a in range(int(lit_a[i]), int(lit_b[i]), 128):
+                    b = min(a + 128, int(lit_b[i]))
+                    out.append(bytes([b - a]) + v[a:b].tobytes())
+                    literals += 1
+                if i < len(run_a):
+                    for a in range(int(run_a[i]), int(run_b[i]), 127):
+                        n = min(127, int(run_b[i]) - a)
+                        out.append(bytes([128 + n, int(v[a])]))
+                        runs += 1
+    return b"".join(out), runs, literals
+
+
+def host_library() -> dict:
+    """The port's host library (phase 19): ``csrc/nrcio.cpp`` built with this
+    machine's host C++ compiler, a HDR_SHAPE RLE ``.hdr`` written from
+    ``assets.synthesize_sky`` (runs and literals), decoded through
+    ``native.hdr_decode`` (and ``assets.read_hdr``) and through the plain
+    decode: bit for bit equal, and within RGBE's precision (1/128 of the
+    pixel's largest channel) of the sky. The times are host times."""
+    from neuralradiancecaching_tpu_torch import kernels
+    from neuralradiancecaching_tpu_torch.io import assets, native
+    kernels.build("nrcio")
+    build_s = kernels.BUILD_SECONDS["nrcio"]
+    check(native.available(), "nrcio is not built")
+    h, w = HDR_SHAPE
+    sky = assets.synthesize_sky(h, w)
+    t0 = time.perf_counter()
+    payload, runs, literals = rle_encode(to_rgbe(sky))
+    encode_s = time.perf_counter() - t0
+    check(runs > 0 and literals > 0, f"the sky's RLE has {runs} runs and "
+          f"{literals} literals")
+    native_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = native.hdr_decode(payload, w, h)
+        native_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plain = assets.hdr_decode_plain(payload, w, h)
+    plain_s = time.perf_counter() - t0
+    check(got.shape == (h, w, 3) and bool(np.isfinite(got).all()),
+          "the native decode is not finite")
+    check(np.array_equal(got.view(np.uint32), plain.view(np.uint32)),
+          "the native decode differs from the plain decode")
+    check(bool((np.abs(got - sky) <= sky.max(axis=-1, keepdims=True) / 128
+                ).all()), "the decoded sky strays from the sky")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sky.hdr")
+        with open(path, "wb") as f:
+            f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                    + f"-Y {h} +X {w}\n".encode() + payload)
+        check(np.array_equal(assets.read_hdr(path).view(np.uint32),
+                             got.view(np.uint32)),
+              "assets.read_hdr differs from native.hdr_decode")
+    res = {"build_s": build_s, "native_decode_s": statistics.median(
+        native_s), "plain_decode_s": plain_s, "encode_s": encode_s,
+        "width": w, "height": h, "payload_bytes": len(payload),
+        "runs": runs, "literals": literals}
+    log(f"host library nrcio, host times on the card's machine [{CARD}]: "
+        f"c++ build {build_s:.3f} s; {w}x{h} RLE .hdr ({len(payload)} bytes, "
+        f"{runs} runs, {literals} literals): native decode "
+        f"{res['native_decode_s']:.4f} s (median of {len(native_s)}), plain "
+        f"decode {plain_s:.4f} s, bitwise equal")
+    return res
+
+
 def exact_config(small: bool = False, lights: bool = False,
                  fused: bool = False):
     """``reference_exact()`` at PRESET_SIDE as it ships (no light on, the
@@ -3018,12 +3125,17 @@ def main() -> int:
     phase("18: bench")
     # -- 18. the port's bench in its own process at a cut -----------------
     bench_run()
+
+    phase("19: host library")
+    # -- 19. the host library: its build and the native HDR decode ---------
+    host = host_library()
     log("quality: " + json.dumps(legs))
     log("cli: " + json.dumps({k: {f: v for f, v in run.items()
                                   if f != "stdout"}
                               for k, run in runs.items()}))
     log("workloads: " + json.dumps({"image_fit": fit, "mnist": mnist,
                                     "offline_trace": offline}))
+    log("host_library: " + json.dumps(host))
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [

@@ -1,6 +1,6 @@
 """Asset loading with synthesize fallbacks -- the port's own copy of the
 loaders of ``neuralradiancecaching_tpu/io/assets.py`` and ``io/hdr.py``
-(numpy only).
+(numpy, and the native library of ``io/native.py`` for the HDR decode).
 
 The loaders (a) parse the real files when present in the checkout's
 ``data/`` directory, with the reference's exact layout (ReadFileDensity3D
@@ -24,6 +24,8 @@ import struct
 from typing import Tuple
 
 import numpy as np
+
+from neuralradiancecaching_tpu_torch.io import native
 
 # the checkout's data directory (git-ignored): reference assets when
 # present, and the cached synthesized cloud
@@ -132,7 +134,9 @@ def synthesize_sky(height: int = 128, width: int = 256) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Radiance .hdr (RGBE) reader (the reference's stb_image path,
 # read_file.cpp:80-121): new-style per-channel RLE scanlines and the flat
-# fallback, pure numpy, (H, W, 3) float32 linear radiance.
+# fallback, (H, W, 3) float32 linear radiance. The payload is decoded by the
+# native library (native.hdr_decode, csrc/nrcio.cpp), as the JAX loader does
+# when its library is built; hdr_decode_plain is its plain version.
 # ---------------------------------------------------------------------------
 
 def _decode_rgbe(rgbe: np.ndarray) -> np.ndarray:
@@ -144,7 +148,9 @@ def _decode_rgbe(rgbe: np.ndarray) -> np.ndarray:
     return rgbe[..., :3].astype(np.float32) * scale[..., None]
 
 
-def read_hdr(path: str) -> np.ndarray:
+def _read_hdr_payload(path: str) -> tuple[bytes, int, int]:
+    """A Radiance file's pixel payload (the bytes after its header) and its
+    width and height."""
     with open(path, "rb") as f:
         data = f.read()
 
@@ -168,10 +174,22 @@ def read_hdr(path: str) -> np.ndarray:
     res = readline().split()
     if res[0] != b"-Y" or res[2] != b"+X":
         raise ValueError(f"unsupported HDR orientation: {res}")
-    height, width = int(res[1]), int(res[3])
+    return data[pos:], int(res[3]), int(res[1])
 
+
+def read_hdr(path: str) -> np.ndarray:
+    """Decode a Radiance file through the native library, which is built at
+    first use; a failed build raises (there is no fallback)."""
+    payload, width, height = _read_hdr_payload(path)
+    return native.hdr_decode(payload, width, height)
+
+
+def hdr_decode_plain(payload: bytes, width: int, height: int) -> np.ndarray:
+    """The plain version of ``native.hdr_decode``: the pure-Python RLE
+    decode, one Python iteration per packet (the tests and chip_smoke.py
+    hold the native decode to it bit for bit)."""
     out = np.zeros((height, width, 4), dtype=np.uint8)
-    buf = np.frombuffer(data, dtype=np.uint8, offset=pos)
+    buf = np.frombuffer(payload, dtype=np.uint8)
     bp = 0
     for y in range(height):
         if width < 8 or width > 0x7FFF or buf[bp] != 2 or buf[bp + 1] != 2 \

@@ -1,1 +1,4 @@
 """Utilities: counterparts of neuralradiancecaching_tpu.utils."""
+
+from neuralradiancecaching_tpu_torch.utils.runtime import (  # noqa: F401
+    setup_cache)

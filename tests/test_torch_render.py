@@ -318,8 +318,11 @@ def test_port_never_imports_jax():
     cap probe), the ``parallel`` package and its job runner, its mnist (on
     labels written here) and image-fit runs, the offline path tracer (on
     the corner table and on the raw grid), ``render_tiled``, ``utils``
-    (``debug``, ``log``, ``profiling``) and the port's bench
-    (``bench_torch.run_bench``, every leg at a toy size) on the CPU load no
+    (``debug``, ``log``, ``profiling``), the port's bench
+    (``bench_torch.run_bench``, every leg at a toy size) and the native
+    asset library (``utils.setup_cache``, then ``assets.load_env_map`` on an
+    RLE ``.hdr`` written here, decoded by ``io/native.py`` over
+    ``csrc/nrcio.cpp``, built at first use) on the CPU load no
     module of JAX and none of the JAX package: the port's own
     ``neuralradiancecaching_tpu_torch*`` modules are the only ones of this
     repository in the process."""
@@ -334,6 +337,20 @@ def test_port_never_imports_jax():
         from neuralradiancecaching_tpu_torch.render import frame, tiled
         from neuralradiancecaching_tpu_torch.scene import scene
         R = dataclasses.replace
+        import tempfile
+        from neuralradiancecaching_tpu_torch.utils import setup_cache
+        setup_cache()
+        rgbe = np.random.default_rng(1).integers(0, 256, (4, 16, 4),
+                                                 dtype=np.uint8)
+        payload = b"".join(bytes([2, 2, 0, 16]) + b"".join(
+            bytes([16]) + rgbe[y, :, c].tobytes() for c in range(4))
+            for y in range(4))
+        with tempfile.TemporaryDirectory() as d:
+            with open(d + "/sky.hdr", "wb") as f:
+                f.write(b"#?RADIANCE\\n\\n-Y 4 +X 16\\n" + payload)
+            env = assets.load_env_map(d + "/sky.hdr")
+        assert env.shape == (4, 16, 3) and np.isfinite(env).all()
+        assert np.array_equal(env, assets.hdr_decode_plain(payload, 16, 4))
         cfg = C.nrc_online_config(16, 16)
         cfg = R(cfg, path=R(cfg.path, sampler="collision",
                             collision_field_steps=4),
@@ -385,7 +402,6 @@ def test_port_never_imports_jax():
                                    g, ref)
         assert bool(torch.isfinite(out.image).all())
         assert bool(torch.isfinite(out.mse))
-        import tempfile
         from neuralradiancecaching_tpu_torch import cli
         for name in ("nrc_online_config", "progressive_1080p_config"):
             full = getattr(C, name)

@@ -110,7 +110,7 @@ must pass 0.8); the offline path tracer (phase 15: 2 timed traces at
 phases 8 and 10 on their scenes and states -- each DP frame held to the
 single-device frame on one set of draws, then 2 rounds of (single, DP,
 DP, single) frames, the DP frames' K1 launches and their all_reduce and
-all_gather times from CUDA events; c: ``probe_dp_caps`` at world size 1
+all_gather times from ``dp.*`` spans; c: ``probe_dp_caps`` at world size 1
 over phase 8's pack against phase 8c's probes; d: two gloo ranks on the
 card, each its own process of ``parallel/job.py``, bitwise equal to
 each other and equal to world size 1 on the renders; e: ``torchrun
@@ -119,8 +119,8 @@ progressive --mesh auto --frames 4`` and ``nrc-online --mesh 1 --frames
 4``, each its own process; f: the walks' branches no preset sets -- the
 NN-mode march split, the dense per-slot shade, the reference march's
 entry kill, the premultiplied env mode -- card vs CPU port); reference_exact
-(phase 17: a, 2 frame_steps at 800x800 after a warm-up timed with
-``utils.profiling.PhaseTimer``, their halves and peak memory, a profiled
+(phase 17: a, 2 frame_steps at 800x800 after a warm-up, each timed on
+the host clock to a synchronize, their halves and peak memory, a profiled
 frame, 32 train_only_steps whose mse is logged, and one frame with
 ``fused_inference`` on the same state and draws as a plain-MLP frame, where
 K1 f32 must launch once and the image stay within the render bound; b, the
@@ -135,8 +135,15 @@ and positive, K1 bf16 launched in its headline loop); the host library
 (phase 19: the build, the native and the plain decode of a 4096x2048 RLE
 ``.hdr`` written from ``assets.synthesize_sky(2048, 4096)``, held bit for
 bit and to the sky at RGBE precision, logged as host times on the card's
-machine). Launch counts are
-reset just before each path's timed frames and read just after. Any failure raises
+machine); the tracer (phase 20, where the CPU cannot look: an
+``.item()`` inside a span counts as one sync; config 5's 1080p frame and
+config 4's 800x800 frame traced, their spans' device milliseconds, syncs,
+cap drops and K1's rows logged, K1's rows at the packed-lane count; the
+frame's kernels with the tracer off against the traced frame's with
+``profiling.cap`` stubbed out (the tracer adds only events and the cap
+arithmetic); the frame's image traced within TRACER_NOISE_MARGIN times
+the largest gap between TRACER_UNTRACED untraced repeats of it). Launch
+counts are reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
 the card's name and power limit, the one before it the kernels' JSON
@@ -148,6 +155,7 @@ include the data-parallel frames' (phases 16a-b).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -254,8 +262,16 @@ OFFLINE_SUN, OFFLINE_FRAMES = (0.0, -1.0, 0.0), 2
 # ranks on the one card at config 5's small cut in DP_SMALL_BAND-row bands
 # (a rank group's time limit DP_RANKS_TIMEOUT); the walks' new branches
 # card vs CPU port, the splits and the entry kill at WALK_SIDE^2 (their
-# packs act above 1024 lanes)
+# packs act above 1024 lanes); DP_TRACED traced DP frames after the turns
+# for the collectives' spans
 DP_TURNS, DP_MSE_REL, DP_SMALL_BAND, DP_RANKS_TIMEOUT = 2, 1e-5, 6, 300
+DP_TRACED = 2
+# the tracer (phase 20): a frame's image traced against TRACER_UNTRACED
+# untraced repeats of it, its nearest gap to them at most
+# TRACER_NOISE_MARGIN times the largest gap between two of them (the
+# atomic sums' order varies run to run: about 2e-6 in config 5, 1e-9 in
+# config 4; bit for bit where the repeats agree)
+TRACER_UNTRACED, TRACER_NOISE_MARGIN = 4, 2.0
 WALK_SIDE = 48
 # the port's bench in its own process at a cut (phase 18): 480x270 in
 # 30-row bands, 2 headline frames, 4 online and 3 moving frames, no quality
@@ -1965,10 +1981,14 @@ def dp_in_turns(label: str, draw, single, data_parallel, counter: str,
     :func:`same_frame`; also the warm-up), then DP_TURNS rounds of
     (single, DP, DP, single) frames, each on fresh draws and ending in a
     synchronize; the DP frames' K1 launches (the count set to 0 just
-    before each DP frame, read just after) and their collectives' own
-    times (CUDA events around the all_reduce and the all_gather)."""
+    before each DP frame, read just after); then DP_TRACED more DP frames
+    outside the timed turns under ``utils.profiling.tracing``, for the
+    collectives' own times (the device milliseconds of the tracer's
+    ``dp.all_reduce`` and ``dp.all_gather`` spans). Both sides of the turns
+    run untraced."""
     from neuralradiancecaching_tpu_torch.ops import fused_mlp
-    from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
+    from neuralradiancecaching_tpu_torch.utils import profiling
+    dev = torch.device("cuda", torch.cuda.current_device())
     d = draw()
     eq = same_frame(label, single(d), data_parallel(d), lr)
     ms = {"single": [], "dp": []}
@@ -1980,16 +2000,20 @@ def dp_in_turns(label: str, draw, single, data_parallel, counter: str,
             sync()
             if which == "dp":
                 setattr(fused_mlp, counter, 0)
-                dp.COLLECTIVE_EVENTS = []
             t0 = time.perf_counter()
             (data_parallel if which == "dp" else single)(d)
             sync()
             ms[which].append((time.perf_counter() - t0) * 1e3)
             if which == "dp":
                 launches += getattr(fused_mlp, counter)
-                for name, s, e in dp.COLLECTIVE_EVENTS:
-                    coll.setdefault(name, []).append(s.elapsed_time(e))
-                dp.COLLECTIVE_EVENTS = None
+    for _ in range(DP_TRACED):
+        d = draw()
+        sync()
+        with profiling.tracing(dev) as rec:
+            data_parallel(d)
+        for r in rec.records():
+            if r.name.startswith("dp."):
+                coll.setdefault(r.name[3:], []).append(r.device_ms)
     n_dp = 2 * DP_TURNS
     out = {"single_ms": ms["single"], "dp_ms": ms["dp"],
            "single_median_ms": statistics.median(ms["single"]),
@@ -2003,6 +2027,7 @@ def dp_in_turns(label: str, draw, single, data_parallel, counter: str,
         f"{out['dp_median_ms']:.3f}; collectives (ms per call) "
         + ", ".join(f"{k} {[round(v, 4) for v in vs]}"
                     for k, vs in coll.items())
+        + f" (in {DP_TRACED} traced DP frames after the turns)"
         + f"; K1 {counter} launches in the {n_dp} DP frames {launches} "
         f"[{CARD}]")
     check(launches >= n_dp, f"{label}: K1 launched {launches} times in "
@@ -2500,8 +2525,8 @@ def pixel_agreement(got: np.ndarray, ref: np.ndarray):
 
 def reference_exact_frames(dev, dens, env) -> int:
     """``reference_exact()`` as it ships at 800x800 (phase 17a): 2 frame_
-    steps after a warm-up timed with utils.profiling.PhaseTimer, their
-    train and render halves and peak memory, one profiled frame, 32
+    steps after a warm-up, each timed on the host clock to a synchronize,
+    their train and render halves and peak memory, one profiled frame, 32
     train_only_steps (their mse logged, not gated: the reference's
     momentum SGD learns more slowly than Adam), then one frame with
     ``fused_inference`` on the same state and draws as one more frame as it
@@ -2512,7 +2537,6 @@ def reference_exact_frames(dev, dens, env) -> int:
     from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
                                                         targets)
     from neuralradiancecaching_tpu_torch.scene import scene as scn
-    from neuralradiancecaching_tpu_torch.utils.profiling import PhaseTimer
     cfg = exact_config()
     check(cfg.path.sampler == "reference" and all(
         dataclasses.astuple(cfg.quirks)) and not cfg.mlp.fused_inference,
@@ -2533,17 +2557,16 @@ def reference_exact_frames(dev, dens, env) -> int:
     check(state.mlp_second is None and state.opt_step is None,
           "reference_exact's state carries Adam fields")
     gen = torch.Generator(device=dev).manual_seed(17)
-    timer = PhaseTimer()
     state, _ = frame.frame_step(state, scene, gen, cfg)  # warm-up
     sync()
     reset_counts()
     ms, halves, mses, means = [], [], [], []
     for _ in range(2):
         h: dict[str, float] = {}
-        before = timer.totals.get("frame_step", 0.0)
-        with timer.phase("frame_step", sync_on=state.hash_table):
-            state, out = frame.frame_step(state, scene, gen, cfg, timings=h)
-        ms.append((timer.totals["frame_step"] - before) * 1e3)
+        t0 = time.perf_counter()
+        state, out = frame.frame_step(state, scene, gen, cfg, timings=h)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
         halves.append(h)
         mses.append(float(out.mse))
         means.append(float(out.image.mean()))
@@ -2555,8 +2578,8 @@ def reference_exact_frames(dev, dens, env) -> int:
     train = [x["train"] * 1e3 for x in halves]
     render = [x["render"] * 1e3 for x in halves]
     log(f"reference_exact frame_step {PRESET_SIDE}x{PRESET_SIDE} ({CARD}): "
-        f"ms {[round(t, 3) for t in ms]} (PhaseTimer: "
-        f"{timer.summary()}); train half {[round(t, 3) for t in train]}, "
+        f"ms {[round(t, 3) for t in ms]}; train half "
+        f"{[round(t, 3) for t in train]}, "
         f"render half {[round(t, 3) for t in render]} ms "
         f"({PRESET_SIDE ** 2 / statistics.median(render) / 1e3:.3f} "
         f"Mrays/s); mse {[round(m, 6) for m in mses]}; image means "
@@ -2567,15 +2590,17 @@ def reference_exact_frames(dev, dens, env) -> int:
         state, scene, gen, cfg))
 
     steps = []
-    with timer.phase("train_only_step x32", sync_on=state.hash_table):
-        for _ in range(TRAIN_STEPS):
-            state, mse = frame.train_only_step(state, scene, gen, cfg)
-            steps.append(mse)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, mse = frame.train_only_step(state, scene, gen, cfg)
+        steps.append(mse)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     steps = [float(m) for m in steps]
     check(bool(np.isfinite(steps).all()), "reference_exact mse not finite")
     log(f"reference_exact: {TRAIN_STEPS} train_only_steps "
-        f"{timer.totals['train_only_step x32'] * 1e3 / TRAIN_STEPS:.3f} "
-        f"ms/step, mse {[round(m, 6) for m in steps]} (logged, not gated), "
+        f"{step_ms:.3f} ms/step, mse {[round(m, 6) for m in steps]} "
+        f"(logged, not gated), "
         f"mean of the first 8 {np.mean(steps[:8]):.6f}, of the last 8 "
         f"{np.mean(steps[-8:]):.6f}")
 
@@ -2742,6 +2767,162 @@ def slice_checks(dev, dens) -> None:
     check(raised, "nan_check let a NaN through on the card")
 
 
+def device_kernels(prof, notes=()) -> collections.Counter:
+    """Kernels on the card in a ``torch.profiler`` trace, by name: device
+    events that are no copy, memset or annotation (``notes``: the span
+    names, which the device's annotations carry)."""
+    n = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and name not in notes
+                and not name.startswith(("Memcpy", "Memset"))):
+            n[name] += 1
+    return n
+
+
+def log_records(label: str, records) -> None:
+    """A traced frame's spans: device and host ms, counts, caps."""
+    for r in records:
+        caps = ", ".join(f"{k} {c['live']}/{c['cap']} dropped {c['dropped']}"
+                         for k, c in r.caps.items())
+        log(f"  {label} span {r.name}: device {r.device_ms:.3f} ms, host "
+            f"{(r.host_end_ns - r.host_start_ns) / 1e6:.3f} ms"
+            + (f", counts {r.counts}" if r.counts else "")
+            + (f", caps {caps}" if caps else ""))
+
+
+def tracer_phase(dev, dens, env) -> dict:
+    """The tracer on the card (phase 20): one ``.item()`` inside a span
+    counts as one sync (and the block restores the sync debug mode); then
+    config 5's 1080p frame (train, bake, render_banded over the bench's
+    caps and hoists) and config 4's 800x800 ``frame_step``, each traced
+    once after a warm-up: its spans logged, K1's ``rows`` equal to the
+    query's row count (config 5: the packed lanes); the frame's kernels
+    with the tracer off equal the traced frame's with ``profiling.cap``
+    stubbed out; and the frame's image traced, no further from its
+    nearest untraced repeat than TRACER_NOISE_MARGIN times the largest gap
+    between two of TRACER_UNTRACED untraced repeats (bit for bit where
+    those agree). Returns what it measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import bench_torch
+    from neuralradiancecaching_tpu_torch.models import nrc
+    from neuralradiancecaching_tpu_torch.render import frame, tiled
+    from neuralradiancecaching_tpu_torch.scene import scene as scn
+    from neuralradiancecaching_tpu_torch.utils import profiling
+    out = {}
+    with profiling.tracing(dev) as rec:
+        with profiling.span("probe"):
+            value = (torch.ones(4, device=dev) * 2).sum().item()
+    probe = rec.records()[0]
+    out["item_syncs"] = probe.counts.get("syncs", 0)
+    log(f"tracer: one .item() inside a span: {out['item_syncs']} sync(s) "
+        f"counted, {rec.loose_syncs} outside spans")
+    check(value == 8.0 and out["item_syncs"] == 1 and rec.loose_syncs == 0,
+          "the tracer did not count the .item() as one sync")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the tracing block left the sync debug mode on")
+
+    def traced_checks(label, run, rows):
+        """run(seed) -> image; the frame off/on/off, its records, its
+        kernels with the tracer off and on with the cap arithmetic
+        stubbed out."""
+        run(1)  # warm-up
+        off = [run(2)]
+        sync()
+        with profiling.tracing(dev) as rec:
+            with rec.frame(2):
+                on = run(2)
+        records, sites = rec.records(), rec.sync_sites
+        off += [run(2) for _ in range(TRACER_UNTRACED - 1)]
+        sync()
+        log_records(label, records)
+        for site, k in sorted(sites.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"  {label} syncs at {site}: {k}")
+        k1_rows = sum(r.counts.get("rows", 0) for r in records
+                      if r.name == "k1")
+        syncs = sum(r.counts.get("syncs", 0) for r in records
+                    if r.name != "frame")
+        notes = {r.name for r in records}
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(3)
+            sync()
+        k_off = device_kernels(prof)
+        real_cap, profiling.cap = profiling.cap, lambda *a, **k: None
+        try:
+            with profiling.tracing(dev) as rec:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    with rec.frame(3):
+                        run(3)
+                    sync()
+        finally:
+            profiling.cap = real_cap
+        k_on = device_kernels(prof, notes)
+        if k_on != k_off:
+            log(f"  {label}: kernels off against on: "
+                f"{dict((k_off - k_on) + (k_on - k_off))}")
+
+        def gap(a, b):
+            return float((a - b).abs().max())
+        noise = max(gap(a, b) for k, a in enumerate(off) for b in off[k + 1:])
+        res = {"k1_rows": k1_rows, "syncs": syncs,
+               "kernels_off": sum(k_off.values()),
+               "kernels_on_without_caps": sum(k_on.values()),
+               "gaps_on": [gap(on, a) for a in off], "gap_off": noise}
+        log(f"tracer, {label}: K1 rows {k1_rows} (expected {rows}), syncs "
+            f"inside program spans {syncs}, kernels with the tracer off "
+            f"{res['kernels_off']}, traced with the cap arithmetic stubbed "
+            f"out {res['kernels_on_without_caps']}; image traced vs "
+            f"{len(off)} untraced, max gaps "
+            f"{[f'{g:.3e}' for g in res['gaps_on']]}; largest gap between "
+            f"two untraced {noise:.3e} [{CARD}]")
+        check(k1_rows == rows, f"{label}: K1 took {k1_rows} rows")
+        check(k_off == k_on, f"{label}: the tracer changed the kernels")
+        check(min(res["gaps_on"]) <= TRACER_NOISE_MARGIN * noise,
+              f"{label}: tracing changed the image beyond the untraced "
+              f"frames' own spread")
+        return res
+
+    cfg = progressive_config(P_WIDTH, P_HEIGHT)
+    scene = scn.make_scene(cfg, dens, env, device=dev)
+    state = nrc.init_state(torch.Generator(device=dev).manual_seed(cfg.seed),
+                           cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(100)
+    for _ in range(P_WARMUP_STEPS):
+        state, _ = frame.train_only_step(state, scene, gen, cfg)
+    cfg, _ = bench_torch.probe_caps(cfg, scene, dev)
+    env_rgb = tiled.frame_env_color(scene, cfg)
+    pack = tiled.frame_live_pack(scene, cfg, BAND_ROWS)
+
+    def progressive(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        st, _ = frame.train_only_step(state, scene, g, cfg)
+        return tiled.render_banded(st, scene, g, cfg, BAND_ROWS,
+                                   env_rgb=env_rgb, baked=nrc.bake(st, cfg),
+                                   pack=pack)
+    out["config5"] = traced_checks(
+        "config 5 1080p frame", progressive,
+        cfg.render.spp * pack.ro_p.shape[0] * pack.ro_p.shape[1])
+    del scene, state, env_rgb, pack
+    torch.cuda.empty_cache()
+
+    c4 = preset_config("config4")
+    scene = scn.make_scene(c4, dens, env, device=dev)
+    state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), c4,
+                           device=dev)
+
+    def online(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return frame.frame_step(state, scene, g, c4)[1].image
+    out["config4"] = traced_checks("config 4 800x800 frame", online,
+                                   PRESET_SIDE ** 2)
+    del scene, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = t_start = time.perf_counter()
@@ -2773,7 +2954,6 @@ def main() -> int:
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
-
     phase("2: build")
     # -- 2. build K1 and K2 from the sources in the checkout, together -------
     t0 = time.perf_counter()
@@ -3129,6 +3309,12 @@ def main() -> int:
     phase("19: host library")
     # -- 19. the host library: its build and the native HDR decode ---------
     host = host_library()
+
+    phase("20: tracer")
+    # -- 20. the tracer where the CPU cannot look: syncs, K1's rows, the
+    #    kernels and the image with the tracer off and on ------------------
+    torch.cuda.empty_cache()
+    log("tracer: " + json.dumps(tracer_phase(dev, dens, env)))
     log("quality: " + json.dumps(legs))
     log("cli: " + json.dumps({k: {f: v for f, v in run.items()
                                   if f != "stdout"}

@@ -26,6 +26,7 @@ from neuralradiancecaching_tpu_torch.ops import mlp as mlp_ops
 from neuralradiancecaching_tpu_torch.ops import mrhe as mrhe_ops
 from neuralradiancecaching_tpu_torch.ops import oneblob as oneblob_ops
 from neuralradiancecaching_tpu_torch.ops import optimizers
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -128,6 +129,7 @@ def query(state: NRCState, pos: torch.Tensor, direction: torch.Tensor,
     return _inference_mlp(state.mlp_params, x, cfg)
 
 
+@profiling.spanned("bake")
 def bake(state: NRCState, cfg: NRCConfig) -> torch.Tensor:
     """The MRHE inference representation (``MRHEConfig.inference_bake``):
     'oct' corner-packed hash rows (one row gather per level per query),
@@ -206,6 +208,7 @@ def make_baked_query_fn(state: NRCState, baked: torch.Tensor,
     return query_fn
 
 
+@profiling.spanned("train.grads")
 def compute_grads(state: NRCState, pos: torch.Tensor,
                   direction: torch.Tensor, target: torch.Tensor,
                   cfg: NRCConfig):
@@ -225,6 +228,7 @@ def compute_grads(state: NRCState, pos: torch.Tensor,
     return (dict(zip(params, grads[:-1])), grads[-1]), mse.detach()
 
 
+@profiling.spanned("train.apply")
 def apply_grads(state: NRCState, grads, cfg: NRCConfig) -> NRCState:
     """Both optimizer steps (nrc-step.comp + mrhe-step.comp), or the
     configured guarded Adam (OptimizerConfig.kind / MRHEConfig.optimizer)

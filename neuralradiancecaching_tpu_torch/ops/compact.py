@@ -20,8 +20,10 @@ from typing import Tuple
 
 import torch
 
+from neuralradiancecaching_tpu_torch.utils import profiling
 
-def compact_select(mask: torch.Tensor, cap: int
+
+def compact_select(mask: torch.Tensor, cap: int, site: str | None = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack the indices of True lanes to the front, in lane order.
 
@@ -29,6 +31,9 @@ def compact_select(mask: torch.Tensor, cap: int
     first min(count, cap) entries of ``sel`` are the indices of the first
     True lanes; the padding entries hold index 0 (as in JAX) with sel_valid
     False. True lanes beyond ``cap`` are dropped, highest indices first.
+    site: the name under which the tracer records the pack's live count
+    against its cap (``utils.profiling.cap``), for a pack whose drops lose
+    energy.
     """
     n = mask.shape[0]
     dev = mask.device
@@ -38,7 +43,10 @@ def compact_select(mask: torch.Tensor, cap: int
     slot = torch.where(mask & (pos < cap), pos, cap)
     sel = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
     sel = sel.scatter(0, slot, torch.arange(n, device=dev))[:cap]
-    count = torch.clamp(mask.sum(), max=cap)
+    live = mask.sum()
+    if site is not None:
+        profiling.cap(live, cap, site)
+    count = torch.clamp(live, max=cap)
     return sel, torch.arange(cap, device=dev) < count
 
 
@@ -87,14 +95,14 @@ def gather_back(inv: torch.Tensor, values: torch.Tensor, fill
     return torch.cat([values, fill_row], dim=0)[inv]
 
 
-def compact_prefix(counts: torch.Tensor, cap: int
+def compact_prefix(counts: torch.Tensor, cap: int, site: str | None = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pack per-row prefix runs: row i contributes slots 0..counts[i]-1.
 
     counts: (n,) ints. Returns (row (cap,), slot (cap,), valid (cap,)):
     packed position p holds row[p]'s slot[p]; positions beyond
     min(sum(counts), cap) have valid False. Bit-identical to the JAX version,
-    overflow included.
+    overflow included. site: as :func:`compact_select`'s.
     """
     n = counts.shape[0]
     dev = counts.device
@@ -102,6 +110,8 @@ def compact_prefix(counts: torch.Tensor, cap: int
     cum = torch.cumsum(counts, dim=0)
     offs = cum - counts  # exclusive
     total = cum[-1]
+    if site is not None:
+        profiling.cap(total, cap, site)
     # mark each nonempty row's id at its start (starts strictly increase, so
     # no in-bounds duplicates); position `cap` is the dropped overflow slot.
     # The running max then fills every packed position with its owner.

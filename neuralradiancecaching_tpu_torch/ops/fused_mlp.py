@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from neuralradiancecaching_tpu_torch.config import MLPConfig
 from neuralradiancecaching_tpu_torch import kernels
 from neuralradiancecaching_tpu_torch.ops import mlp as mlp_ops
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 # launches of the CUDA kernel in this process, one per kernel launch: in
 # the float32 mode and in the bf16 mode
@@ -223,12 +224,15 @@ def pack_params(params, cfg: MLPConfig, bf16: bool = False,
     return PackedMLP(buf, bf16)
 
 
+@profiling.spanned("k1")
 def launch(packed: PackedMLP, x: torch.Tensor, cfg: MLPConfig
            ) -> torch.Tensor:
     """Launch K1 on a CUDA tensor with weights packed by
     :func:`pack_params` in the rows' mode: (B, 64) float32 or bf16 rows ->
-    (B, out_features) float32."""
+    (B, out_features) float32. Traced as the span ``k1`` with the count
+    ``rows``."""
     global LAUNCHES, LAUNCHES_BF16
+    profiling.count("rows", x.shape[0])
     if x.device.type != "cuda":
         raise ValueError(f"launch needs a CUDA tensor, got {x.device}")
     _check_supported(x, cfg)

@@ -36,8 +36,8 @@ g)``). With them the image does not depend on the world size and equals
 stream seeded by one draw per rank from ``generator`` (shared: seeded
 alike on every rank), so the sample then depends on the world size.
 
-``COLLECTIVE_EVENTS``: set it to a list and each collective on the card
-appends (name, start, end) CUDA events around itself.
+Each collective runs as the tracer's span ``dp.<collective>``
+(``utils.profiling``): ``dp.all_reduce``, ``dp.all_gather``.
 """
 
 from __future__ import annotations
@@ -56,22 +56,10 @@ from neuralradiancecaching_tpu_torch.parallel.mesh import Mesh
 from neuralradiancecaching_tpu_torch.render import pathtrace, targets, tiled
 from neuralradiancecaching_tpu_torch.scene.camera import pixel_rays
 from neuralradiancecaching_tpu_torch.scene.scene import Scene
-
-COLLECTIVE_EVENTS: Optional[list] = None
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 # -- collectives and shards ----------------------------------------------------
-
-def _timed(name: str, mesh: Mesh, fn) -> None:
-    if COLLECTIVE_EVENTS is None or mesh.device.type != "cuda":
-        fn()
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    COLLECTIVE_EVENTS.append((name, start, end))
 
 
 def _pmean(mesh: Mesh, grads, mse: torch.Tensor):
@@ -80,8 +68,8 @@ def _pmean(mesh: Mesh, grads, mse: torch.Tensor):
     mlp, table = grads
     parts = [*mlp.values(), table, mse.reshape(1)]
     flat = torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
-    _timed("all_reduce", mesh,
-           lambda: dist.all_reduce(flat, dist.ReduceOp.SUM, mesh.group))
+    with profiling.span("dp.all_reduce"):
+        dist.all_reduce(flat, dist.ReduceOp.SUM, mesh.group)
     flat = flat / mesh.size
     out = [f.reshape(p.shape).to(p.dtype) for f, p in zip(
         torch.split(flat, [p.numel() for p in parts]), parts)]
@@ -93,8 +81,8 @@ def _all_gather(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((mesh.size * x.shape[0], *x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _timed("all_gather", mesh,
-           lambda: dist.all_gather_into_tensor(out, x, mesh.group))
+    with profiling.span("dp.all_gather"):
+        dist.all_gather_into_tensor(out, x, mesh.group)
     return out
 
 

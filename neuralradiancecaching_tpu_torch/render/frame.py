@@ -25,6 +25,7 @@ from neuralradiancecaching_tpu_torch.models import nrc
 from neuralradiancecaching_tpu_torch.render import pathtrace, targets
 from neuralradiancecaching_tpu_torch.scene.camera import pixel_rays
 from neuralradiancecaching_tpu_torch.scene.scene import Scene
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 class FrameOutput(NamedTuple):
@@ -32,6 +33,7 @@ class FrameOutput(NamedTuple):
     mse: torch.Tensor    # scalar train-loss stat (nrcStats.mseLoss)
 
 
+@profiling.spanned("train")
 def train_only_step(state: nrc.NRCState, scene: Scene,
                     generator: Optional[torch.Generator], cfg: NRCConfig,
                     train_uniforms: Optional[targets.TrainUniforms] = None
@@ -74,6 +76,7 @@ def frame_step(state: nrc.NRCState, scene: Scene,
     return state, FrameOutput(image=image, mse=mse)
 
 
+@profiling.spanned("render")
 def render_only_step(state: nrc.NRCState, scene: Scene,
                      generator: Optional[torch.Generator], cfg: NRCConfig,
                      uniforms=None) -> torch.Tensor:

@@ -61,6 +61,7 @@ from neuralradiancecaching_tpu_torch.ops import envmap as envmap_ops
 from neuralradiancecaching_tpu_torch.ops import phase as phase_ops
 from neuralradiancecaching_tpu_torch.ops import volume as volume_ops
 from neuralradiancecaching_tpu_torch.scene.scene import Scene
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 # A cache query function: (pos (N,3), dir (N,3)) -> radiance (N,3)
 QueryFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -755,13 +756,16 @@ def trace_path_collision(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         # to m1 lanes (O(n) cumsum compaction; overflow drops the highest
         # lanes)
         s1, ys1 = scan_walk(init, pu.walk[0])
-        sel, sel_valid = compact.compact_select(~s1.done, plan.m1)
+        sel, sel_valid = compact.compact_select(
+            ~s1.done, plan.m1, site="walk_repack_nn" if use_nn
+            else "walk_repack")
         sub = _take(s1, sel)
         sub = sub._replace(done=sub.done | ~sel_valid)  # inert padding
         if plan.p2a:
             # cascade: a second repack to m2 lanes p2a slots into phase 2
             s2a, ys2a = scan_walk(sub, pu.walk[1])
-            sel2, val2 = compact.compact_select(~s2a.done, plan.m2)
+            sel2, val2 = compact.compact_select(~s2a.done, plan.m2,
+                                                site="walk_repack2")
             sub2 = _take(s2a, sel2)
             sub2 = sub2._replace(done=sub2.done | ~val2)
             s2b, ys2b = scan_walk(sub2, pu.walk[2])
@@ -841,7 +845,8 @@ def _prefix_shade(scene: Scene, cfg: NRCConfig, e_pos: torch.Tensor,
     w_rm = e_w.T  # (lanes, k); 0 marks invalid
     packed = torch.cat([e_pos, e_dir], dim=-1).transpose(0, 1).reshape(nk, 6)
     counts = torch.sum(w_rm > 0.0, dim=1)
-    row, slot, val_e = compact.compact_prefix(counts, cap)
+    row, slot, val_e = compact.compact_prefix(counts, cap,
+                                              site="prefix_shade")
     idx = row * k + torch.clamp(slot, max=k - 1)
     rows = packed[idx].to(dtype)
     w_rows = w_rm.reshape(nk)[idx].to(dtype)
@@ -986,14 +991,15 @@ def _reference_path(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
             # only the others, packed to m0 lanes
             tau0 = lightfield.query_tau_field(scene.env_t_field, entry, rd,
                                               vol)
-            sel0, val0 = compact.compact_select(tau0 > 1e-4, m0)
+            sel0, val0 = compact.compact_select(tau0 > 1e-4, m0,
+                                                site="march_entry")
             s0 = _take(init, sel0)
             s0 = s0._replace(done=s0.done | ~val0)
         s1 = march(s0, pu.walk[0])
         tau_ahead = lightfield.query_tau_field(scene.env_t_field, s1.cur_pos,
                                                s1.cur_dir, vol)
         live = ~s1.done & (tau_ahead > 1e-4)
-        sel, val = compact.compact_select(live, m1)
+        sel, val = compact.compact_select(live, m1, site="march_repack")
         sub = _take(s1, sel)
         sub = march(sub._replace(done=sub.done | ~val), pu.walk[1])
         s = _merge(s1, sel, val, sub)
@@ -1011,7 +1017,8 @@ def _reference_path(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         cap = min(nk, max(1024, int(n * pt.compact_events)))
         packed = torch.cat([ev_pos, ev_prev, ev_dir, ev_dens[..., None]],
                            dim=-1).reshape(nk, 10)
-        sel, sel_valid = compact.compact_select(valid.reshape(nk), cap)
+        sel, sel_valid = compact.compact_select(valid.reshape(nk), cap,
+                                                site="march_events")
         rows = packed[sel]
         t_r_sel = _segment_t(scene, cfg, rows[:, 0:3], rows[:, 3:6])
         light_sel = trace_scene(scene, cfg, rows[:, 0:3], rows[:, 6:9],
@@ -1100,7 +1107,7 @@ def _capped_query(cfg: NRCConfig, query_fn: QueryFn, q_pos: torch.Tensor,
     capq = min(n, max(1024, int(base * cfg.render.query_cap_fraction)))
     if capq > chunk:  # whole chunks; may exceed n (compact_select pads)
         capq = -(-capq // chunk) * chunk
-    sel, sel_valid = compact.compact_select(has_q, capq)
+    sel, sel_valid = compact.compact_select(has_q, capq, site="query")
     cache_sel = torch.where(sel_valid[:, None],
                             query_fn(q_pos[sel], q_dir[sel]), 0.0)
     return compact.scatter_back(n, sel, sel_valid, cache_sel, 0.0)
@@ -1123,17 +1130,19 @@ def render_image(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     n = ro.shape[0]
 
     def one_sample(u):
-        res = trace_path(scene, cfg, ro, rd, generator, use_nn=use_nn,
-                         uniforms=u)
+        with profiling.span("render.walk"):
+            res = trace_path(scene, cfg, ro, rd, generator, use_nn=use_nn,
+                             uniforms=u)
         rgb = res.scattered
         if use_nn and not cfg.render.show_non_nn:
-            if cfg.render.query_cap_fraction < 1.0:
-                cache = _capped_query(cfg, query_fn, res.query_pos,
-                                      res.query_dir, res.query_weight > 0.0,
-                                      n)
-            else:
-                cache = query_fn(res.query_pos, res.query_dir)
-            rgb = rgb + res.query_weight[:, None] * cache
+            with profiling.span("render.query"):
+                if cfg.render.query_cap_fraction < 1.0:
+                    cache = _capped_query(cfg, query_fn, res.query_pos,
+                                          res.query_dir,
+                                          res.query_weight > 0.0, n)
+                else:
+                    cache = query_fn(res.query_pos, res.query_dir)
+                rgb = rgb + res.query_weight[:, None] * cache
         return rgb, res.transmittance
 
     spp = cfg.render.spp
@@ -1149,8 +1158,9 @@ def render_image(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
         rgb = torch.mean(torch.stack(rgbs), dim=0)
         trans = torch.mean(torch.stack(transs), dim=0)
 
-    env_color = envmap_ops.sample_direct(scene.env, rd, hpm=False)
-    return _env_composite(cfg, ro, rd, rgb, trans, env_color), trans
+    with profiling.span("render.finish"):
+        env_color = envmap_ops.sample_direct(scene.env, rd, hpm=False)
+        return _env_composite(cfg, ro, rd, rgb, trans, env_color), trans
 
 
 def _env_composite(cfg: NRCConfig, ro: torch.Tensor, rd: torch.Tensor,
@@ -1229,34 +1239,46 @@ def shade_and_query(scene: Scene, cfg: NRCConfig, rgb: torch.Tensor,
     base = cap_n if cap_n is not None else n
     n_env = cfg.env_map.n_samples
     if events is not None and events.shape[1] > 0:
-        k = events.shape[1]
-        if cfg.render.shade_slot0_dense and k > 1:
-            rows0 = events[:, 0, :].to(rgb.dtype)
-            w0 = rows0[:, 6]
-            light0 = trace_scene(scene, cfg, rows0[:, 0:3], rows0[:, 3:6],
-                                 n_env)
-            # mask BEFORE weighting: empty slots can shade to NaN
-            rgb = rgb + torch.where((w0 > 0.0)[:, None], w0[:, None] * light0,
-                                    0.0)
-            events = events[:, 1:, :]
-            k = k - 1
-        flat = events.reshape(n * k, 7)
-        counts = torch.sum(events[:, :, 6] > 0.0, dim=1)
-        cap_e = min(n * k,
-                    max(1024, int(base * cfg.render.shade_cap_fraction)))
-        row, slot, val_e = compact.compact_prefix(counts, cap_e)
-        idx = row * k + torch.clamp(slot, max=k - 1)
-        rows = flat[idx].to(rgb.dtype)  # bf16 events upcast after the gather
-        light = trace_scene(scene, cfg, rows[:, 0:3], rows[:, 3:6], n_env)
-        contrib = torch.where(val_e[:, None], rows[:, 6:7] * light, 0.0)
-        rgb = rgb + compact.prefix_segment_sum(contrib, counts, slot)
+        with profiling.span("render.shade"):
+            rgb = _shade_events(scene, cfg, rgb, events, base, n_env)
 
-    has_q = q_w > 0.0
-    if cfg.render.query_cap_fraction < 1.0:
-        cache = _capped_query(cfg, query_fn, q_pos, q_dir, has_q, base)
-    else:
-        cache = torch.where(has_q[:, None], query_fn(q_pos, q_dir), 0.0)
-    return rgb + q_w[:, None] * cache
+    with profiling.span("render.query"):
+        has_q = q_w > 0.0
+        if cfg.render.query_cap_fraction < 1.0:
+            cache = _capped_query(cfg, query_fn, q_pos, q_dir, has_q, base)
+        else:
+            cache = torch.where(has_q[:, None], query_fn(q_pos, q_dir), 0.0)
+        return rgb + q_w[:, None] * cache
+
+
+def _shade_events(scene: Scene, cfg: NRCConfig, rgb: torch.Tensor,
+                  events: torch.Tensor, base: int,
+                  n_env: int) -> torch.Tensor:
+    """The deferred shade of :func:`shade_and_query`: rgb plus the
+    events' light."""
+    n = rgb.shape[0]
+    k = events.shape[1]
+    if cfg.render.shade_slot0_dense and k > 1:
+        rows0 = events[:, 0, :].to(rgb.dtype)
+        w0 = rows0[:, 6]
+        light0 = trace_scene(scene, cfg, rows0[:, 0:3], rows0[:, 3:6],
+                             n_env)
+        # mask BEFORE weighting: empty slots can shade to NaN
+        rgb = rgb + torch.where((w0 > 0.0)[:, None], w0[:, None] * light0,
+                                0.0)
+        events = events[:, 1:, :]
+        k = k - 1
+    flat = events.reshape(n * k, 7)
+    counts = torch.sum(events[:, :, 6] > 0.0, dim=1)
+    cap_e = min(n * k,
+                max(1024, int(base * cfg.render.shade_cap_fraction)))
+    row, slot, val_e = compact.compact_prefix(counts, cap_e,
+                                              site="deferred_shade")
+    idx = row * k + torch.clamp(slot, max=k - 1)
+    rows = flat[idx].to(rgb.dtype)  # bf16 events upcast after the gather
+    light = trace_scene(scene, cfg, rows[:, 0:3], rows[:, 3:6], n_env)
+    contrib = torch.where(val_e[:, None], rows[:, 6:7] * light, 0.0)
+    return rgb + compact.prefix_segment_sum(contrib, counts, slot)
 
 
 def finish_deferred(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
@@ -1272,6 +1294,7 @@ def finish_deferred(scene: Scene, cfg: NRCConfig, ro: torch.Tensor,
     ``rd`` when None. Returns the final rgb (N, 3)."""
     rgb = shade_and_query(scene, cfg, rgb, q_pos, q_dir, q_w, query_fn,
                           events)
-    if env_rgb is None:
-        env_rgb = envmap_ops.sample_direct(scene.env, rd, hpm=False)
-    return _env_composite(cfg, ro, rd, rgb, trans, env_rgb)
+    with profiling.span("render.finish"):
+        if env_rgb is None:
+            env_rgb = envmap_ops.sample_direct(scene.env, rd, hpm=False)
+        return _env_composite(cfg, ro, rd, rgb, trans, env_rgb)

@@ -36,6 +36,7 @@ from neuralradiancecaching_tpu_torch.ops import volume as volume_ops
 from neuralradiancecaching_tpu_torch.render import pathtrace
 from neuralradiancecaching_tpu_torch.scene.camera import pixel_rays
 from neuralradiancecaching_tpu_torch.scene.scene import Scene
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 def _train_walk_cfg(cfg: NRCConfig) -> NRCConfig:
@@ -311,6 +312,7 @@ def trace_target_paths(scene: Scene, cfg: NRCConfig, pos: torch.Tensor,
     flat_valid = valid.reshape(ns)
     env = cfg.train.env_samples
     if cap < ns:
+        profiling.cap(flat_valid, cap, "target_events")
         # the valid events first, in step-major order (JAX: the stable
         # jnp.argsort(~valid))
         sel = torch.argsort((~flat_valid).to(torch.int32), stable=True)[:cap]
@@ -379,6 +381,7 @@ def generate_train_batch_for_rays(scene: Scene, cfg: NRCConfig,
     return TrainBatch(pos=pos, dir=d, target=target)
 
 
+@profiling.spanned("train.batch")
 def generate_train_batch(scene: Scene, cfg: NRCConfig,
                          generator: Optional[torch.Generator],
                          uniforms: Optional[TrainUniforms] = None

@@ -46,6 +46,7 @@ from neuralradiancecaching_tpu_torch.ops import volume as volume_ops
 from neuralradiancecaching_tpu_torch.render import pathtrace
 from neuralradiancecaching_tpu_torch.scene.camera import pixel_rays
 from neuralradiancecaching_tpu_torch.scene.scene import Scene
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 class LivePack(NamedTuple):
@@ -62,6 +63,7 @@ def _rays(scene: Scene, cfg: NRCConfig):
     return pixel_rays(scene.camera, cfg.render.width, cfg.render.height)
 
 
+@profiling.spanned("hoist.env")
 def frame_env_color(scene: Scene, cfg: NRCConfig) -> torch.Tensor:
     """Direct env radiance per pixel (N, 3) for the current camera: static
     per camera pose."""
@@ -115,6 +117,7 @@ def live_fraction(scene: Scene, cfg: NRCConfig) -> float:
     return int(live.sum()) / live.numel()
 
 
+@profiling.spanned("hoist.pack")
 def frame_live_pack(scene: Scene, cfg: NRCConfig, band_rows: int = 54,
                     multiple_of: int = 1) -> LivePack:
     """The pose-static live-ray pack for the packed banded frame: the live
@@ -135,7 +138,7 @@ def frame_live_pack(scene: Scene, cfg: NRCConfig, band_rows: int = 54,
     n_bands_p = max(1, -(-int(n * cfg.render.live_pack_fraction) // band_n))
     n_bands_p = -(-n_bands_p // multiple_of) * multiple_of
     capm = min(n_bands_p * band_n, n)
-    sel, val = compact.compact_select(live, capm)
+    sel, val = compact.compact_select(live, capm, site="live_pack")
     ro_p, rd_p = ro[sel], rd[sel]
     if cfg.path.entry_tau_steps > 0 and cfg.path.sampler == "collision":
         et_p = torch.where(val, _entry_tau(scene, cfg, ro_p, rd_p), 0.0)
@@ -227,6 +230,7 @@ def _cat_bands(parts: list) -> tuple:
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+@profiling.spanned("render.walk")
 def walk_rows(scene: Scene, cfg: NRCConfig, ro_b: torch.Tensor,
               rd_b: torch.Tensor, entry_tau: Optional[torch.Tensor],
               generator: Optional[torch.Generator], uniforms=None):
@@ -328,13 +332,14 @@ def _packed_bands_program(scene: Scene, generator: Optional[torch.Generator],
     if pack is None:
         pack = frame_live_pack(scene, cfg, band_rows)
     spp = cfg.render.spp
-    rgb, trans, qp, qd, qw, ev = _walk_bands(
-        scene, cfg, _tile(pack.ro_p, spp), _tile(pack.rd_p, spp),
-        _tile(pack.et_p, spp), generator, uniforms)
-    val = _tile(pack.val, spp)
-    qw = torch.where(val, qw, 0.0)
-    if ev.shape[1] > 0:
-        ev = ev.masked_fill(~val[:, None, None], 0.0)
+    with profiling.span("render.walk"):
+        rgb, trans, qp, qd, qw, ev = _walk_bands(
+            scene, cfg, _tile(pack.ro_p, spp), _tile(pack.rd_p, spp),
+            _tile(pack.et_p, spp), generator, uniforms)
+        val = _tile(pack.val, spp)
+        qw = torch.where(val, qw, 0.0)
+        if ev.shape[1] > 0:
+            ev = ev.masked_fill(~val[:, None, None], 0.0)
     return pack.inv, rgb, trans, qp, qd, qw, ev
 
 
@@ -350,18 +355,20 @@ def _finish_packed(state: nrc.NRCState, baked: torch.Tensor, scene: Scene,
     spp = cfg.render.spp
     rgb_p = pathtrace.shade_and_query(scene, cfg, rgb_p, qp, qd, qw,
                                       query_fn, events=ev, cap_n=spp * n)
-    if spp > 1:
-        # the pack is shared by every copy and the composite is linear in
-        # (rgb, T0): the mean before the un-pack is the mean after it
-        rgb_p = rgb_p.reshape(spp, -1, 3).mean(dim=0)
-        trans_p = trans_p.reshape(spp, -1).mean(dim=0)
-    rgbt = torch.cat([rgb_p, trans_p[:, None]], dim=1)
-    out = compact.gather_back(inv, rgbt, [0.0, 0.0, 0.0, 1.0])
-    if env_rgb is None:
-        env_rgb = frame_env_color(scene, cfg)
-    return out[:, :3] + out[:, 3:4] * env_rgb
+    with profiling.span("render.finish"):
+        if spp > 1:
+            # the pack is shared by every copy and the composite is linear
+            # in (rgb, T0): the mean before the un-pack is the mean after it
+            rgb_p = rgb_p.reshape(spp, -1, 3).mean(dim=0)
+            trans_p = trans_p.reshape(spp, -1).mean(dim=0)
+        rgbt = torch.cat([rgb_p, trans_p[:, None]], dim=1)
+        out = compact.gather_back(inv, rgbt, [0.0, 0.0, 0.0, 1.0])
+        if env_rgb is None:
+            env_rgb = frame_env_color(scene, cfg)
+        return out[:, :3] + out[:, 3:4] * env_rgb
 
 
+@profiling.spanned("render")
 def render_banded(state: nrc.NRCState, scene: Scene,
                   generator: Optional[torch.Generator], cfg: NRCConfig,
                   band_rows: int = 54, env_rgb: Optional[torch.Tensor] = None,

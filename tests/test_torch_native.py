@@ -365,6 +365,10 @@ NOT_PORTED = {
     # native fbm), so a binding here would be a second copy with no caller
     "io/native.py": {"build_inv_cdfs", "read_density", "synthesize_cloud",
                      "write_exr", "read_idx1"},
+    # folded into the port's tracer (utils/profiling.py: span, tracing):
+    # a phase timer that synchronized the device at each phase's end, and
+    # a rate that no caller read
+    "utils/profiling.py": {"PhaseTimer", "rays_per_second"},
 }
 
 

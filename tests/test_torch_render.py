@@ -445,15 +445,15 @@ def test_port_never_imports_jax():
         assert bool(torch.isfinite(res.color).all())
         from neuralradiancecaching_tpu_torch.utils import (debug, log,
                                                            profiling)
-        timer = profiling.PhaseTimer()
-        with timer.phase("render_tiled", sync_on=st.hash_table):
-            img = tiled.render_tiled(st, sc, g, ref, 4)
+        with profiling.tracing("cpu") as rec:
+            with rec.frame(0):
+                img = tiled.render_tiled(st, sc, g, ref, 4)
         debug.assert_all_finite({"image": img}, "render_tiled")
         with debug.nan_check():
             res = opt.trace(torch.tensor(dens), cfg.volume, ocfg,
                             [0.0, -1.0, 0.0], 1.0, ro, rd,
                             opt.draw_offline_uniforms(g, ocfg, 8))
-        log.Log.info(timer.summary())
+        log.Log.info(", ".join(r.name for r in rec.records()))
         import os
         import bench_torch
         os.environ.update(

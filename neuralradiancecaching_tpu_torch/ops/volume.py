@@ -9,7 +9,8 @@ the unbiased ratio-tracking transmittance of the ground-truth oracle (its
 uniforms from the caller) and the dilated coarse majorant grid of
 local-majorant delta tracking.
 Shape-polymorphic over leading batch dimensions; no data-dependent control
-flow.
+flow. Each call of the two transmittance estimators is traced as the span
+``transmittance`` with the count ``density_samples`` (its rows x steps).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from neuralradiancecaching_tpu_torch.config import VolumeConfig
 from neuralradiancecaching_tpu_torch.ops import consts, scan
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
@@ -150,12 +152,14 @@ def density_at(field: torch.Tensor, pos: torch.Tensor,
     return cfg.density_factor * sample_grid_trilinear(field, uvw)
 
 
+@profiling.spanned("transmittance")
 def transmittance(field: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
                   steps: int, cfg: VolumeConfig) -> torch.Tensor:
     """Fixed-step quadrature: samples at start + (i/steps)(end - start) for
     i in [0, steps), T = exp(-step * sum sigma); 1 for zero-length segments.
     start/end: (..., 3) -> (...,). Holds (..., steps, 3) points at once:
     callers chunk large batches."""
+    profiling.count("density_samples", start.shape[:-1].numel() * steps)
     seg = end - start
     length = torch.linalg.vector_norm(seg, dim=-1)
     step_size = length / steps
@@ -171,6 +175,7 @@ def quantize_8bit(grid: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(grid, 0.0, 1.0) * 255.0) / 255.0
 
 
+@profiling.spanned("transmittance")
 def transmittance_ratio(field: torch.Tensor, start: torch.Tensor,
                         end: torch.Tensor, uniforms: torch.Tensor,
                         sigma_maj: torch.Tensor | float, cfg: VolumeConfig
@@ -186,6 +191,7 @@ def transmittance_ratio(field: torch.Tensor, start: torch.Tensor,
     ``uniform(key, (steps,) + shape)``. Holds (steps, ..., 3) points at
     once: callers chunk large batches.
     """
+    profiling.count("density_samples", uniforms.numel())
     seg = end - start
     length = torch.linalg.vector_norm(seg, dim=-1)
     dirn = seg / torch.clamp(length, min=1e-12)[..., None]

@@ -254,8 +254,11 @@ def test_config5_progressive_frame_span_tree_and_bits():
     records = rec.records()
     framed = [r for r in records if r.frame is not None]
     check_tree(framed, C5_TREE, (0, 1))
-    # the hoists and the first bake ran outside any frame
-    top = [r.name for r in records if r.frame is None]
+    # the hoists and the first bake ran outside any frame (and the
+    # quadrature of the scene's field bake and of the pack's entry tau,
+    # each call its own ``transmittance`` span)
+    top = [r.name for r in records
+           if r.frame is None and r.name != "transmittance"]
     assert top == ["hoist.env", "hoist.pack", "bake"]
     assert not any(r.frame == 1 and r.name.startswith("train")
                    for r in records)
@@ -268,6 +271,12 @@ def test_config4_online_frame_span_tree_and_bits():
     with profiling.tracing("cpu") as rec:
         on = c4_frames(cfg, rec)
     records = rec.records()
+    # only the scene's field bake ran outside any frame: its quadrature,
+    # each call its own top-level ``transmittance`` span
+    outside = [r for r in records if r.frame is None]
+    assert {r.name for r in outside} == {"transmittance"}
+    assert all(r.parent is None for r in outside)
+    records = [r for r in records if r.frame is not None]
     check_tree(records, C4_TREE, (0, 1))
     for i in (0, 1):
         names = {r.name for r in records if r.frame == i}

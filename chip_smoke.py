@@ -142,7 +142,12 @@ cap drops and K1's rows logged, K1's rows at the packed-lane count; the
 frame's kernels with the tracer off against the traced frame's with
 ``profiling.cap`` stubbed out (the tracer adds only events and the cap
 arithmetic); the frame's image traced within TRACER_NOISE_MARGIN times
-the largest gap between TRACER_UNTRACED untraced repeats of it). Launch
+the largest gap between TRACER_UNTRACED untraced repeats of it); the
+quadrature transmittance kernel (phase 21, after the assets load: bit for
+bit the plain path at the main path's (rows, steps), camera-ordered
+segments through the 8-bit stand-in table, each timed against the plain
+path and its bound; its launches a reference_exact frame and an orbit
+pose's live pack, checked above 0, and phase 21's own apart). Launch
 counts are reset just before each path's timed frames and read just after. Any failure raises
 and exits non-zero. Without a CUDA device, or outside a checkout of the
 repository, it exits 2 and prints no result. The line before the last is
@@ -282,6 +287,10 @@ BENCH_CUT = {"BENCH_WIDTH": "480", "BENCH_HEIGHT": "270", "BENCH_FRAMES": "2",
 BENCH_TIMEOUT = 300
 BENCH_RATES = ("value", "train_steps_per_s", "online_fps_train_every_frame",
                "online_fps", "online_fps_moving", "mrays_s_spp2")
+# the quadrature transmittance kernel (phase 21) at the main path's
+# (rows, steps): reference_exact's 800^2 sky rays and segments, the orbit's
+# 460,800-lane entry tau
+TRANSMITTANCE_SHAPES = ((640_000, 16), (640_000, 32), (460_800, 64))
 # the host library (phase 19): the (height, width) of the RLE .hdr written
 # from the synthesized sky and decoded natively and by the plain decode
 HDR_SHAPE = (2048, 4096)
@@ -290,6 +299,10 @@ HDR_SHAPE = (2048, 4096)
 CARD = ""
 # the data-parallel phases' results, logged once at the end
 DP_LOG: dict = {}
+# the quadrature kernel's launches by path, for the kernels record: a
+# reference_exact frame's and an orbit pose's live pack on the main path,
+# and phase 21's own checks and timing loops
+K3_LAUNCHES: dict = {}
 # the host clock at the start of main(): each phase logs its start against it
 T_START = time.perf_counter()
 
@@ -906,8 +919,13 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     # -- 8d. pose-static hoists ---------------------------------------------
     env_rgb = stage("frame_env_color (once per pose)",
                     lambda: tiled.frame_env_color(scene, cfg))
+    volume.LAUNCHES = 0
     pack = stage("frame_live_pack (once per pose, with the packed entry "
                  "tau)", lambda: tiled.frame_live_pack(scene, cfg, BAND_ROWS))
+    K3_LAUNCHES["orbit pose's live pack"] = volume.LAUNCHES
+    check(volume.LAUNCHES > 0, "frame_live_pack's entry tau did not launch "
+          "the quadrature kernel")
+    log(f"frame_live_pack: quadrature kernel launches {volume.LAUNCHES}")
     n_packed = pack.ro_p.shape[0] * pack.ro_p.shape[1]
     n_live = int(pack.val.sum())
     log(f"live-ray pack: {n_live} live rays of {n_pix}, packed to "
@@ -1133,8 +1151,9 @@ def small_cut(cfg):
 
 def reset_counts() -> None:
     """Every kernel's launch count and the peak-memory mark set to 0."""
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul, volume
     fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BF16 = matmul.LAUNCHES = 0
+    volume.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
 
 
@@ -2533,7 +2552,7 @@ def reference_exact_frames(dev, dens, env) -> int:
     ships: K1 f32 launches once there and its image stays within the render
     bound of the plain MLP's. Returns K1's launches in that frame."""
     from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul, volume
     from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
                                                         targets)
     from neuralradiancecaching_tpu_torch.scene import scene as scn
@@ -2575,6 +2594,10 @@ def reference_exact_frames(dev, dens, env) -> int:
               and np.isfinite(mses[-1]), "reference_exact frame not finite")
     peak = torch.cuda.max_memory_allocated()
     check(fused_mlp.LAUNCHES == 0, "reference_exact as it ships launched K1")
+    k3 = volume.LAUNCHES / len(ms)
+    K3_LAUNCHES["reference_exact frame"] = k3
+    check(k3 > 0, "reference_exact's frames did not launch the quadrature "
+          "kernel")
     train = [x["train"] * 1e3 for x in halves]
     render = [x["render"] * 1e3 for x in halves]
     log(f"reference_exact frame_step {PRESET_SIDE}x{PRESET_SIDE} ({CARD}): "
@@ -2584,7 +2607,8 @@ def reference_exact_frames(dev, dens, env) -> int:
         f"({PRESET_SIDE ** 2 / statistics.median(render) / 1e3:.3f} "
         f"Mrays/s); mse {[round(m, 6) for m in mses]}; image means "
         f"{[round(m, 5) for m in means]}; K1 launches {fused_mlp.LAUNCHES}, "
-        f"K2 {matmul.LAUNCHES}; peak memory {peak / 2**30:.3f} GiB")
+        f"K2 {matmul.LAUNCHES}, quadrature kernel {k3:g} a frame; peak memory "
+        f"{peak / 2**30:.3f} GiB")
     del out
     profile_call("reference_exact frame_step", lambda: frame.frame_step(
         state, scene, gen, cfg))
@@ -2923,6 +2947,91 @@ def tracer_phase(dev, dens, env) -> dict:
     return out
 
 
+def camera_segments(rows: int, steps: int, vol, dev):
+    """``rows`` segments through the box in a camera's pixel order from 64
+    units out (the orbit's radius), so neighbouring rows are neighbouring
+    rays as on the main path: entry to exit for 32 and more steps, from
+    the ray's midpoint in the box to the box exit along another pixel-
+    ordered direction for 16 (the shade's sky rays)."""
+    from neuralradiancecaching_tpu_torch.ops import volume
+    side = int(np.ceil(np.sqrt(rows)))
+    u = (torch.arange(side, device=dev, dtype=torch.float32) + 0.5) / side
+    gy, gx = torch.meshgrid(u - 0.5, u - 0.5, indexing="ij")
+    rd = torch.stack([gx * 1.2, gy * 1.2, torch.ones_like(gx)], dim=-1)
+    rd = (rd / torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
+          ).reshape(-1, 3)[:rows].contiguous()
+    ro = torch.tensor([0.0, 0.0, -64.0], device=dev).expand(rows, 3)
+    entry, exit_p, _ = volume.entry_exit_points(ro, rd, vol.box_size,
+                                                vol.box_center)
+    if steps > 16:
+        return entry, exit_p
+    mid = 0.5 * (entry + exit_p)
+    sky = torch.stack([rd[:, 1], -rd[:, 2], rd[:, 0]], dim=-1)
+    _, out, _ = volume.entry_exit_points(mid, sky, vol.box_size,
+                                         vol.box_center)
+    return mid, out
+
+
+def transmittance_phase(dev, dens) -> dict:
+    """The quadrature kernel against the plain path (phase 21): bit for bit
+    at each of TRANSMITTANCE_SHAPES on the 8-bit stand-in table with
+    reference_exact's volume, over camera-ordered segments; the kernel's
+    time (the wrapper's torch operations included: the segment, its
+    length and step size and the step sum; and the finish kernel), the
+    plain path's, the bound (each byte read or written once: the table,
+    the segments' ends, the samples written and summed, and the result,
+    over HBM_BYTES_S) and the time every sample's 32-byte row would take
+    from device memory (most come from L1 or L2). Its own launches go
+    into K3_LAUNCHES apart from the main path's."""
+    from neuralradiancecaching_tpu_torch.ops import volume
+    vol = exact_config().volume
+    volume.LAUNCHES = 0
+    table = volume.build_corner_table(volume.quantize_8bit(
+        torch.as_tensor(dens, device=dev)))
+    out = {}
+    for rows, steps in TRANSMITTANCE_SHAPES:
+        start, end = camera_segments(rows, steps, vol, dev)
+        launches = volume.LAUNCHES
+        got = volume.transmittance(table, start, end, steps, vol)
+        want = volume.transmittance_plain(table, start, end, steps, vol)
+        sync()
+        equal = torch.equal(got, want)
+        check(volume.LAUNCHES == launches + 2,
+              "transmittance did not launch its two kernels on the card")
+        check(equal, f"the transmittance kernel differs from the plain path "
+              f"at {rows} x {steps}")
+
+        def kernel():
+            return volume.transmittance_kernel(table, start, end, steps, vol)
+
+        def plain():
+            return volume.transmittance_plain(table, start, end, steps, vol)
+        t_p1, t_k1 = time_ms(plain, 2, 3), time_ms(kernel, 10, 5)
+        t_k2, t_p2 = time_ms(kernel, 10, 5), time_ms(plain, 2, 3)
+        k_ms, p_ms = statistics.median([t_k1, t_k2]), statistics.median(
+            [t_p1, t_p2])
+        b_ms = (table.numel() * 4 + rows * (24 + 4) + rows * steps * 8
+                ) / HBM_BYTES_S * 1e3
+        rows_ms = rows * steps * 32.0 / HBM_BYTES_S * 1e3
+        key = f"{rows}x{steps}"
+        out[key] = {"equal": equal, "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "roofline_pct": 100.0 * b_ms / k_ms,
+                    "row_traffic_ms": rows_ms,
+                    "gsamples_s": rows * steps / k_ms / 1e6,
+                    "mean_t": float(got.mean())}
+        log(f"transmittance kernel {key}: bitwise equal {equal}; kernel "
+            f"{k_ms:.4f} ms ({t_k1:.4f}, {t_k2:.4f}), plain {p_ms:.3f} ms "
+            f"({t_p1:.3f}, {t_p2:.3f}), {p_ms / k_ms:.1f}x; bound {b_ms:.4f} "
+            f"ms by bytes ({100.0 * b_ms / k_ms:.1f}% of the kernel's time); "
+            f"every sample's row from device memory {rows_ms:.4f} ms; "
+            f"{rows * steps / k_ms / 1e6:.2f} G samples/s; mean T "
+            f"{float(got.mean()):.4f}; {CARD}")
+        del start, end, got, want
+    torch.cuda.empty_cache()
+    K3_LAUNCHES["phase 21"] = volume.LAUNCHES
+    return out
+
+
 def main() -> int:
     global T_START
     T_START = t_start = time.perf_counter()
@@ -2957,14 +3066,14 @@ def main() -> int:
     phase("2: build")
     # -- 2. build K1 and K2 from the sources in the checkout, together -------
     t0 = time.perf_counter()
-    kernels.build_all(["fused_mlp", "matmul"])
-    for kname in ("fused_mlp", "matmul"):
+    kernels.build_all(kernels.CUDA_KERNELS)
+    for kname in kernels.CUDA_KERNELS:
         kernels.load(kname)
         log(f"build {kname}: nvcc {kernels.BUILD_SECONDS[kname]:.2f} s -> "
             f"{kernels.library_path(kname).relative_to(REPO)}")
         for line in kernels.BUILD_LOG[kname].splitlines():
             log(f"  nvcc: {line}")
-    log(f"both builds: {time.perf_counter() - t0:.2f} s wall")
+    log(f"the builds: {time.perf_counter() - t0:.2f} s wall")
     for kname in ("fused_mlp", "matmul"):
         n_hgmma = kernels.sass(kname).count("HGMMA")
         log(f"{kname}: {n_hgmma} HGMMA (wgmma) instructions in its SASS")
@@ -3036,6 +3145,9 @@ def main() -> int:
     import bench_torch
     dens, env, cloud_src, env_src = bench_torch.load_assets()
     log(f"cloud {dens.shape}: {cloud_src}; env {env.shape}: {env_src}")
+
+    phase("21: quadrature kernel")
+    transmittance_times = transmittance_phase(dev, dens)
     torch.cuda.reset_peak_memory_stats()
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
@@ -3336,7 +3448,12 @@ def main() -> int:
          "max_abs_err_f64": k2_err_f64, "ms": k2_ms, "plain_ms": mm_ms,
          "bound_ms": k2_bound, "bound_by": k2_by,
          "fp32_fma_bound_ms": fp32_fma_bound_ms(k2_flop, k2_bytes),
-         "library_ms": mm_ms}]}
+         "library_ms": mm_ms},
+        {"name": "transmittance", "route": "cuda",
+         "source": "neuralradiancecaching_tpu_torch/csrc/transmittance.cu",
+         "replaces": "none (XLA array code in the JAX package)",
+         "launches": K3_LAUNCHES.get("reference_exact frame"),
+         "launches_by_path": K3_LAUNCHES, "shapes": transmittance_times}]}
     log(json.dumps(record))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

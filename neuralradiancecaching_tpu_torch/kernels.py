@@ -29,6 +29,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 DEFAULT_BUILD_DIR = PKG_DIR / "_build"
 # where every library is built and loaded from (utils.runtime.setup_cache)
 BUILD_DIR = DEFAULT_BUILD_DIR
+# the hand-written CUDA kernels, csrc/<name>.cu: K1 (the query MLP), K2
+# (the fp32 matrix product) and the quadrature transmittance
+CUDA_KERNELS = ("fused_mlp", "matmul", "transmittance")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the Makefile's flags for the JAX package's copy of nrcio, without

@@ -11,18 +11,35 @@ local-majorant delta tracking.
 Shape-polymorphic over leading batch dimensions; no data-dependent control
 flow. Each call of the two transmittance estimators is traced as the span
 ``transmittance`` with the count ``density_samples`` (its rows x steps).
+
+On the card the quadrature's density samples come from one hand-written
+CUDA kernel (``csrc/transmittance.cu``, :func:`quadrature_densities`,
+which adds its rows x steps to the count ``density_samples_kernel``): the
+plain path's per-sample arithmetic done once in registers. The step sum
+stays the plain path's ``torch.sum``, and a second kernel of the same file
+does what follows it (the step size's product, ``exp`` and the zero-length
+test), so :func:`transmittance_kernel` is bit for bit
+:func:`transmittance_plain` on the same tensors at any step count.
+Dispatch rule: CPU tensors take the plain path; CUDA tensors take the
+kernels, or raise ``ValueError`` for what they do not take. There is no
+fallback from the card to the plain path.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from neuralradiancecaching_tpu_torch import kernels
 from neuralradiancecaching_tpu_torch.config import VolumeConfig
 from neuralradiancecaching_tpu_torch.ops import consts, scan
 from neuralradiancecaching_tpu_torch.utils import profiling
+
+# launches of the quadrature's kernels (csrc/transmittance.cu) in this process
+LAUNCHES = 0
 
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
@@ -152,14 +169,13 @@ def density_at(field: torch.Tensor, pos: torch.Tensor,
     return cfg.density_factor * sample_grid_trilinear(field, uvw)
 
 
-@profiling.spanned("transmittance")
-def transmittance(field: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
-                  steps: int, cfg: VolumeConfig) -> torch.Tensor:
-    """Fixed-step quadrature: samples at start + (i/steps)(end - start) for
-    i in [0, steps), T = exp(-step * sum sigma); 1 for zero-length segments.
-    start/end: (..., 3) -> (...,). Holds (..., steps, 3) points at once:
-    callers chunk large batches."""
-    profiling.count("density_samples", start.shape[:-1].numel() * steps)
+def transmittance_plain(field: torch.Tensor, start: torch.Tensor,
+                        end: torch.Tensor, steps: int, cfg: VolumeConfig
+                        ) -> torch.Tensor:
+    """The quadrature in plain torch (the kernel's plain version): samples
+    at start + (i/steps)(end - start) for i in [0, steps), T = exp(-step *
+    sum sigma); 1 for zero-length segments. start/end: (..., 3) -> (...,).
+    Holds (..., steps, 3) points at once: callers chunk large batches."""
     seg = end - start
     length = torch.linalg.vector_norm(seg, dim=-1)
     step_size = length / steps
@@ -168,6 +184,133 @@ def transmittance(field: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
     dens = density_at(field, pts, cfg)  # (..., S)
     optical = step_size * torch.sum(dens, dim=-1)
     return torch.where(length > 0.0, torch.exp(-optical), 1.0)
+
+
+def _kernel_library() -> ctypes.CDLL:
+    lib = kernels.load("transmittance")
+    fn = lib.quadrature_densities
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_float] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    fn = lib.quadrature_finish
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def quadrature_densities(field: torch.Tensor, start: torch.Tensor,
+                         seg: torch.Tensor, steps: int, cfg: VolumeConfig
+                         ) -> torch.Tensor:
+    """The quadrature's density samples as one launch of
+    ``csrc/transmittance.cu``: (..., 3) float32 CUDA start and seg ->
+    (..., steps), bit for bit :func:`density_at` at start + (i/steps) seg
+    (the plain path's ``dens``). ``field`` is the float32 corner table of
+    ``cfg.grid_shape`` (contiguous, 16-byte aligned). Raises ``ValueError``
+    for anything else; the inputs are checked before their device."""
+    global LAUNCHES
+    for name, t in (("field", field), ("start", start), ("seg", seg)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"transmittance kernel takes float32 tensors, "
+                             f"got {name} {t.dtype}")
+    nx, ny, nz = cfg.grid_shape
+    if tuple(field.shape) != ((nx + 1) * (ny + 1) * (nz + 1), 8):
+        raise ValueError(f"transmittance kernel takes the corner table of "
+                         f"grid_shape {tuple(cfg.grid_shape)}, got "
+                         f"{tuple(field.shape)}")
+    if not field.is_contiguous() or field.data_ptr() % 16:
+        raise ValueError("transmittance kernel takes a contiguous corner "
+                         "table starting 16-byte aligned (16-byte loads)")
+    if start.shape != seg.shape or start.shape[-1:] != (3,):
+        raise ValueError(f"transmittance kernel takes (..., 3) start and "
+                         f"end, got {tuple(start.shape)}, {tuple(seg.shape)}")
+    if steps < 1:
+        raise ValueError(f"transmittance kernel needs steps >= 1, got {steps}")
+    if start.device.type != "cuda":
+        raise ValueError(f"transmittance kernel needs CUDA tensors, got "
+                         f"{start.device}")
+    for name, t in (("field", field), ("seg", seg)):
+        if t.device != start.device:
+            raise ValueError(f"transmittance kernel: {name} on {t.device}, "
+                             f"start on {start.device}")
+    dens = torch.empty((*start.shape[:-1], steps), dtype=torch.float32,
+                       device=start.device)
+    rows = start.shape[:-1].numel()
+    if rows == 0:
+        return dens
+    start_c, seg_c = start.contiguous(), seg.contiguous()
+    err = _kernel_library().quadrature_densities(
+        field.data_ptr(), start_c.data_ptr(), seg_c.data_ptr(),
+        dens.data_ptr(), rows, steps, *cfg.box_center, *cfg.box_size, nx, ny,
+        nz, cfg.density_factor, start.device.index,
+        torch.cuda.current_stream(start.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"transmittance kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    profiling.count("density_samples_kernel", rows * steps)
+    return dens
+
+
+def transmittance_kernel(field: torch.Tensor, start: torch.Tensor,
+                         end: torch.Tensor, steps: int, cfg: VolumeConfig
+                         ) -> torch.Tensor:
+    """The quadrature on CUDA tensors, bit for bit
+    :func:`transmittance_plain`: its density samples from
+    :func:`quadrature_densities` (which adds its rows x steps to the count
+    ``density_samples_kernel``), the segment, its length, the step size and
+    the step sum in the plain path's torch operations, the rest in the
+    finish kernel. start/end: float32 (..., 3) of any layout -> (...,)."""
+    if end.device != start.device or end.shape != start.shape:
+        raise ValueError(f"transmittance kernel takes start and end of one "
+                         f"shape on one device, got {tuple(start.shape)} on "
+                         f"{start.device}, {tuple(end.shape)} on {end.device}")
+    seg = end - start
+    length = torch.linalg.vector_norm(seg, dim=-1)
+    step_size = length / steps
+    dens = quadrature_densities(field, start, seg, steps, cfg)
+    return _quadrature_finish(torch.sum(dens, dim=-1), step_size, length)
+
+
+def _quadrature_finish(total: torch.Tensor, step_size: torch.Tensor,
+                       length: torch.Tensor) -> torch.Tensor:
+    """The plain path's ``where(length > 0, exp(-(step_size * total)), 1)``
+    as one launch of ``csrc/transmittance.cu``'s finish kernel, bit for
+    bit; (...,) float32 CUDA tensors of one shape, as
+    :func:`transmittance_kernel` makes them."""
+    global LAUNCHES
+    out = torch.empty(length.shape, dtype=torch.float32, device=length.device)
+    rows = length.numel()
+    if rows == 0:
+        return out
+    err = _kernel_library().quadrature_finish(
+        total.contiguous().data_ptr(), step_size.contiguous().data_ptr(),
+        length.contiguous().data_ptr(), out.data_ptr(), rows,
+        length.device.index,
+        torch.cuda.current_stream(length.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"transmittance finish kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out
+
+
+@profiling.spanned("transmittance")
+def transmittance(field: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+                  steps: int, cfg: VolumeConfig) -> torch.Tensor:
+    """Fixed-step quadrature: samples at start + (i/steps)(end - start) for
+    i in [0, steps), T = exp(-step * sum sigma); 1 for zero-length segments.
+    start/end: (..., 3) -> (...,). :func:`transmittance_kernel` on CUDA
+    tensors, :func:`transmittance_plain` (which holds (..., steps, 3)
+    points at once: callers chunk large batches) on CPU tensors."""
+    profiling.count("density_samples", start.shape[:-1].numel() * steps)
+    if start.device.type == "cpu":
+        return transmittance_plain(field, start, end, steps, cfg)
+    return transmittance_kernel(field, start, end, steps, cfg)
 
 
 def quantize_8bit(grid: torch.Tensor) -> torch.Tensor:

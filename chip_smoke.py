@@ -69,93 +69,74 @@ instructions in each built library. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases: device; both kernels built together, their HGMMA counts; K1 and
-K2 vs plain and vs float64 with timings (K1's launch alone on weights
-packed once, and its whole wrapper, at the config-4-preset query's
-640,000 rows; K1's pack kernel against the plain pack step; K1's
-wide-output form; NaN and inf rows); scene bake; cache state; frames
-through ``render_only_step`` and then through ``frame_step``; 32
-``train_only_step``s whose mse must fall; both frames' profiles; K1 on
-the frame's real feature rows; the port on the card vs the port on the
-CPU at a small size with the same random draws (the CPU path is the one
-the tests hold to the JAX package), for the render and for one online
-frame; then config 5: its scene bake (and each field's bake alone, for
-its peak memory), 3 warm-up train steps, the probes and caps, K1's bf16
-mode vs plain, 4+1 progressive frames, their stages and profile, K1 bf16
-on the frame's real rows, the quality legs, and the card vs the CPU port
-on the packed frame at a small size with f32 and with bf16 fields; then
-configs 3 and 4 as they ship: 4+1 frames each, 32 train steps whose mse
-must fall, the stages and a profiled frame of each, each render again in
-the CLI's 32-row bands (1+1 warm frames), K1 f32 on config
-4's real query rows; and the card vs the CPU port at 32x32 on the oracle's
-render and on one config-4-preset frame; then the port's CLI as a user
-runs it, each run its own process at the subcommand's default size
-(``pathtrace`` at 800x800 in 32-row bands, also with the delta sampler at
-spp 2; ``nrc-online`` for 4 frames with a checkpoint, then resumed from it
-for one; ``progressive`` for 4 frames at 1920x1080), each image read back
-finite, the frames' times and peak memory logged; and the card vs the CPU
-port on every branch of ``render_banded`` the CLI reaches (the cache off
-with each sampler, the cached reference sampler, the delta sampler's
-deferred shade packed and unpacked and its in-band shade, spp 2) at
-32x32; config 4's frame with the dense bake and the hash train encode
-(phase 10c: 2 timed frames after a warm-up, K1 f32 on its query, and in
-turns against the oct path ``nrc.bake``, ``encode_baked`` on its 640,000
-query rows and ``compute_grads``; phase 11b: the card vs the CPU port on
-one such frame at 32x32 at the train tests' bounds); the side workloads
-(phase 14: ``image-fit`` in its own process, its PSNR and ms per step,
-``image_fit.train_step`` card vs CPU port, ``mnist`` whose train accuracy
-must pass 0.8); the offline path tracer (phase 15: 2 timed traces at
-800x800 after a warm-up, a profiled one, the card vs the CPU port at
-32x32 on the same uniforms); data parallel (phase 16: a and b inside
-phases 8 and 10 on their scenes and states -- each DP frame held to the
-single-device frame on one set of draws, then 2 rounds of (single, DP,
-DP, single) frames, the DP frames' K1 launches and their all_reduce and
-all_gather times from ``dp.*`` spans; c: ``probe_dp_caps`` at world size 1
-over phase 8's pack against phase 8c's probes; d: two gloo ranks on the
-card, each its own process of ``parallel/job.py``, bitwise equal to
-each other and equal to world size 1 on the renders; e: ``torchrun
---standalone --nproc-per-node 1 -m neuralradiancecaching_tpu_torch.cli
-progressive --mesh auto --frames 4`` and ``nrc-online --mesh 1 --frames
-4``, each its own process; f: the walks' branches no preset sets -- the
-NN-mode march split, the dense per-slot shade, the reference march's
-entry kill, the premultiplied env mode -- card vs CPU port); reference_exact
-(phase 17: a, 2 frame_steps at 800x800 after a warm-up, each timed on
-the host clock to a synchronize, their halves and peak memory, a profiled
-frame, 32 train_only_steps whose mse is logged, and one frame with
-``fused_inference`` on the same state and draws as a plain-MLP frame, where
-K1 f32 must launch once and the image stay within the render bound; b, the
-card vs the CPU port on one such frame at 32x32, as it ships and with the
-lights on; c, the raw-grid fetch against the corner table on the card
-(bitwise) and the CPU port, ``render_tiled`` against ``render_banded`` at
-32x32 with the cache off and on, a ``utils.profiling.trace`` file under
-the git-ignored ``out/`` and ``utils.debug.nan_check`` raising on a NaN);
-the port's bench (phase 18: ``bench_torch.py`` in its own process at
-480x270 with the quality legs off, every rate of its result line finite
-and positive, K1 bf16 launched in its headline loop); the host library
-(phase 19: the build, the native and the plain decode of a 4096x2048 RLE
-``.hdr`` written from ``assets.synthesize_sky(2048, 4096)``, held bit for
-bit and to the sky at RGBE precision, logged as host times on the card's
-machine); the tracer (phase 20, where the CPU cannot look: an
-``.item()`` inside a span counts as one sync; config 5's 1080p frame and
-config 4's 800x800 frame traced, their spans' device milliseconds, syncs,
-cap drops and K1's rows logged, K1's rows at the packed-lane count; the
-frame's kernels with the tracer off against the traced frame's with
-``profiling.cap`` stubbed out (the tracer adds only events and the cap
-arithmetic); the frame's image traced within TRACER_NOISE_MARGIN times
-the largest gap between TRACER_UNTRACED untraced repeats of it); the
-quadrature transmittance kernel (phase 21, after the assets load: bit for
-bit the plain path at the main path's (rows, steps), camera-ordered
-segments through the 8-bit stand-in table, each timed against the plain
-path and its bound; its launches a reference_exact frame and an orbit
-pose's live pack, checked above 0, and phase 21's own apart). Launch
-counts are reset just before each path's timed frames and read just after. Any failure raises
-and exits non-zero. Without a CUDA device, or outside a checkout of the
-repository, it exits 2 and prints no result. The line before the last is
-the card's name and power limit, the one before it the kernels' JSON
-record (K1 f32's launches are those of the config-4-preset frames, oct
-and dense/hash, and of the fused reference_exact frame); the
-last line is {"ok": true, "device": {...}}. K1's launches in the record
-include the data-parallel frames' (phases 16a-b).
+It checks and does not time frames: frame times come from the benchmark
+(``python3 benchmark/run.py --workload <cell> ...``). Its only timings are
+the kernels' own (phases 3, 8e and 21), which the kernel table of PERF.md
+reads. Launch counts come from the port's tracer
+(``utils/profiling.py``): the frames whose launches are checked run
+inside ``profiling.tracing``, and the kernel wrappers' counts
+``k1_f32_launches``, ``k1_bf16_launches``, ``k2_launches`` and
+``k3_launches`` are read from its records.
+
+Phases: 1 device; 2 the three kernels built together, the HGMMA counts of
+K1 and K2; 3 K1 and K2 vs plain and vs float64 with their timings (K1's
+launch alone on weights packed once, and its whole wrapper, at the
+config-4-preset query's 640,000 rows; K1's pack kernel against the plain
+pack step; K1's wide-output form; NaN and inf rows); 21 the quadrature
+kernel bit for bit the plain path at the main path's (rows, steps),
+each timed against the plain path and its bound; 4-6 config 4 with the
+collision sampler at 512x512: its scene, 4 frames through
+``render_only_step`` and 4 through ``frame_step`` (K1 launched on each),
+K1 on the frame's real rows, 32 ``train_only_step``s whose mse must fall;
+7 the card vs the CPU port at 32x32 with the same random draws (the CPU
+path is the one the tests hold to the JAX package), for the render and
+for one online frame; 8 config 5: its bf16 scene, 3 warm-up train steps,
+the probes and caps (``benchmark/caps.py``), the live-ray pack (the
+quadrature kernel launched), K1's bf16 mode vs plain and timed at the
+packed-lane count, 4 progressive frames (K1 bf16 launched on each), no
+entry-tau quadrature inside ``render_banded``, K1 bf16 on the frame's real
+rows; 16a the same frame data-parallel, 16c ``probe_dp_caps``; 8h the
+quality legs; 8i the card vs the CPU port on the packed frame with f32 and
+with bf16 fields; 9-10 configs 3 and 4 as they ship at 800x800: 4 frames
+each (config 3 launches no K1, config 4 launches K1 f32 on each), 32
+train steps whose mse must fall, K1 f32 on config 4's real query rows,
+each render once more in the CLI's 32-row bands; 10c config 4 with the
+dense bake and the hash train encode: 2 frames, the dense encode against
+the oct one; 16b config 4's frame data-parallel; 11 the card vs the CPU
+port at 32x32 on the oracle's render, on one config-4-preset frame and on
+one dense/hash frame; 17 reference_exact: 2 frames (no K1, the quadrature
+kernel launched), 32 train steps, the ``fused_inference`` frame against
+the plain one (K1 f32 launched once), the card vs the CPU port at 32x32,
+the raw-grid fetch, ``render_tiled``, ``utils.profiling.trace`` and
+``utils.debug.nan_check``; 12 the CLI as a user runs it, each run its own
+process at the subcommand's default size (``pathtrace`` at 800x800 in
+32-row bands, also with the delta sampler at spp 2; ``nrc-online`` for 4
+frames with a checkpoint, then resumed from it for one; ``progressive``
+for 4 frames at 1920x1080), each image read back finite, the CLI's own
+metrics rows logged; 13 the card vs the CPU port on every branch of
+``render_banded`` the CLI reaches at 32x32; 14 ``image-fit`` in its own
+process, ``image_fit.train_step`` card vs CPU port, ``mnist`` whose train
+accuracy must pass 0.8; 15 the offline path tracer at 800x800 and card vs
+CPU port at 32x32; 16d-f two gloo ranks on the card, each its own process
+of ``parallel/job.py``, bitwise equal to each other and equal to world
+size 1 on the renders, the walks' branches no preset sets card vs CPU
+port, and the CLI's ``--mesh`` frames under ``torchrun``; 19 the host
+library (the build, the native and the plain decode of a 4096x2048 RLE
+``.hdr``, bit for bit; host times); 20 the tracer where the CPU cannot
+look (an ``.item()`` inside a span counts as one sync; config 5's and
+config 4's frames traced, K1's rows at the query's row count, the frame's
+kernels with the tracer off against the traced frame's with
+``profiling.cap`` stubbed out, each from a profile padded by
+PROFILE_PAD seconds of idle at both ends, the traced image within
+TRACER_NOISE_MARGIN times the largest gap between TRACER_UNTRACED
+untraced repeats). Any failure raises and exits non-zero. Without a CUDA
+device, or outside a checkout of the repository, it exits 2 and prints no
+result. The line before the last is the card's name and power limit, the
+one before it the kernels' JSON record (K1 f32's launches are those of
+the config-4-preset frames, oct and dense/hash, its data-parallel frame
+and the fused reference_exact frame; K1 bf16's those of the progressive
+frames and their data-parallel frame); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -174,6 +155,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from benchmark.work import HBM_BYTES_S, bound_ms, k1_work
 
 REPO = Path(__file__).resolve().parent
 WIDTH = HEIGHT = 512
@@ -200,14 +183,14 @@ K2_TOL = 2e-4
 # turns summation-order noise into steps of a share of lr.
 SMALL_FRAC_OK, SMALL_REL_MEAN = 0.995, 1e-4
 SMALL_MSE_REL, SMALL_PARAM_TOL, SMALL_HASH_FRAC = 1e-3, 1e-6, 0.999
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): the
-# tensor cores' bf16 rate bounds any route to a kernel's useful work; the
-# FP32 FMA pipe's is logged beside it (the yardstick of PRs 1-3)
-TENSOR_FLOPS, FP32_FLOPS, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# the FP32 FMA pipe's published peak (NVIDIA data sheet, H100 SXM, dense,
+# at 700 W), logged beside the tensor-core bound of benchmark/work.py (the
+# yardstick of PRs 1-3)
+FP32_FLOPS = 67e12
 # config 5's progressive frame (bench.py:69-84: 1920x1080, spp 1, 30-row
-# bands; bench.py:153 three warm-up train steps), 4 timed frames after one
-# warm-up frame, and K1's bf16 mode at the tests' sizes (the frame's
-# packed-lane count is added once the pack is built)
+# bands; bench.py:153 three warm-up train steps), 4 frames, and K1's bf16
+# mode at the tests' sizes (the frame's packed-lane count is added once
+# the pack is built)
 P_WIDTH, P_HEIGHT, BAND_ROWS = 1920, 1080, 30
 P_FRAMES, P_WARMUP_STEPS = 4, 3
 K1_BF16_SIZES = K1_EDGE_SIZES
@@ -218,13 +201,9 @@ K1_BF16_SIZES = K1_EDGE_SIZES
 # 1e-4 relative)
 SMALL_BF16_FRAC_OK = 0.99
 # configs 3 and 4 as they ship (pathtrace_config / nrc_online_config at
-# their 800x800 default; config 4 with only fused_inference set): 4 timed
-# frames after one warm-up, 32 train steps whose mse must fall
+# their 800x800 default; config 4 with only fused_inference set): 4
+# frames, 32 train steps whose mse must fall, one frame in the CLI's bands
 PRESET_SIDE = 800
-# the same presets' frames in the CLI's bands, warm: timed frames after a
-# warm-up (each a few seconds: a band issues about a whole frame's launches;
-# one, and no profile, to keep the run inside its time limit)
-BANDED_FRAMES = 1
 # the port's bench's ground-truth legs (bench.py:755-829): 256^2, the
 # oracle twins at 2 x 128 spp, the no-cache collision and the NN twins at
 # 2 x 64 spp, the NN leg after 400 train steps
@@ -244,9 +223,8 @@ BANDED_CASES = (("reference", False, 2, False, "field"),
                 ("collision", True, 2, False, "field"),
                 ("collision", True, 2, True, "field"))
 # config 4 as it ships with the dense inference bake and the hash-path
-# train encode (phase 10c): timed frames after a warm-up; its stages timed
-# in turns against the oct path's (time_ms over STAGE_REPS x STAGE_ROUNDS)
-DENSE_FRAMES, STAGE_REPS, STAGE_ROUNDS = 2, 3, 3
+# train encode (phase 10c): its frames
+DENSE_FRAMES = 2
 # the image fit's one train step, card vs CPU port (phase 14): mse 1e-5
 # relative (a forward of the same state), MLP parameters 1e-6, hash
 # entries >= 99.9% within 1e-6 and all within 1e-5 (plain SGD moves an
@@ -258,35 +236,28 @@ FIT_MSE_REL, FIT_HASH_ALL = 1e-5, 1e-5
 MNIST_TRAIN_LABELS, MNIST_TEST_LABELS, MNIST_MIN_ACC = 10000, 2048, 0.8
 # the offline path tracer (phase 15) at the presets' 800x800 with
 # OfflinePTConfig's defaults and the JAX tests' sun, straight down
-OFFLINE_SUN, OFFLINE_FRAMES = (0.0, -1.0, 0.0), 2
-# the data-parallel paths (phase 16) at world size 1 with NCCL: the frames
-# in DP_TURNS rounds of (single device, DP, DP, single device) on fresh
-# draws, each DP frame held to the single-device one on one set of draws
-# (the train tests' bounds, mse within DP_MSE_REL: the same card, only the
-# atomic sums' order differs; the image at the render bound); two gloo
-# ranks on the one card at config 5's small cut in DP_SMALL_BAND-row bands
-# (a rank group's time limit DP_RANKS_TIMEOUT); the walks' new branches
-# card vs CPU port, the splits and the entry kill at WALK_SIDE^2 (their
-# packs act above 1024 lanes); DP_TRACED traced DP frames after the turns
-# for the collectives' spans
-DP_TURNS, DP_MSE_REL, DP_SMALL_BAND, DP_RANKS_TIMEOUT = 2, 1e-5, 6, 300
-DP_TRACED = 2
+OFFLINE_SUN = (0.0, -1.0, 0.0)
+# the data-parallel paths (phase 16) at world size 1 with NCCL: a DP frame
+# held to the single-device one on one set of draws (the train tests'
+# bounds, mse within DP_MSE_REL: the same card, only the atomic sums' order
+# differs; the image at the render bound); two gloo ranks on the one card
+# at config 5's small cut in DP_SMALL_BAND-row bands (a rank group's time
+# limit DP_RANKS_TIMEOUT); the walks' new branches card vs CPU port, the
+# splits and the entry kill at WALK_SIDE^2 (their packs act above 1024
+# lanes)
+DP_MSE_REL, DP_SMALL_BAND, DP_RANKS_TIMEOUT = 1e-5, 6, 300
 # the tracer (phase 20): a frame's image traced against TRACER_UNTRACED
 # untraced repeats of it, its nearest gap to them at most
 # TRACER_NOISE_MARGIN times the largest gap between two of them (the
 # atomic sums' order varies run to run: about 2e-6 in config 5, 1e-9 in
 # config 4; bit for bit where the repeats agree)
 TRACER_UNTRACED, TRACER_NOISE_MARGIN = 4, 2.0
+# seconds of host sleep at each end of a profile whose kernels are counted
+# (phase 20): torch.profiler keeps only the device records whose times,
+# mapped onto the host's clock, fall inside its window, and kernels that
+# run right at an unpadded window's edge can map outside it
+PROFILE_PAD = 0.25
 WALK_SIDE = 48
-# the port's bench in its own process at a cut (phase 18): 480x270 in
-# 30-row bands, 2 headline frames, 4 online and 3 moving frames, no quality
-# legs; its time limit; the rate keys that must be finite and positive
-BENCH_CUT = {"BENCH_WIDTH": "480", "BENCH_HEIGHT": "270", "BENCH_FRAMES": "2",
-             "BENCH_ONLINE_FRAMES": "4", "BENCH_MOVING_FRAMES": "3",
-             "BENCH_QUALITY": "0"}
-BENCH_TIMEOUT = 300
-BENCH_RATES = ("value", "train_steps_per_s", "online_fps_train_every_frame",
-               "online_fps", "online_fps_moving", "mrays_s_spp2")
 # the quadrature transmittance kernel (phase 21) at the main path's
 # (rows, steps): reference_exact's 800^2 sky rays and segments, the orbit's
 # 460,800-lane entry tau
@@ -300,9 +271,8 @@ CARD = ""
 # the data-parallel phases' results, logged once at the end
 DP_LOG: dict = {}
 # the quadrature kernel's launches by path, for the kernels record: a
-# reference_exact frame's and an orbit pose's live pack on the main path,
-# and phase 21's own checks and timing loops
-K3_LAUNCHES: dict = {}
+# reference_exact frame's and an orbit pose's live pack on the main path
+K3_BY_PATH: dict = {}
 # the host clock at the start of main(): each phase logs its start against it
 T_START = time.perf_counter()
 
@@ -331,6 +301,23 @@ def check(cond: bool, what: str) -> None:
 
 def sync() -> None:
     torch.cuda.synchronize()
+
+
+def traced(dev, fn):
+    """``fn()`` under the port's tracer, inside one ``frame`` span: (its
+    result, a Counter of every count summed over the spans -- the kernels'
+    ``k1_f32_launches``, ``k1_bf16_launches``, ``k2_launches`` and
+    ``k3_launches`` among them -- with each span's name counted as
+    ``span <name>``)."""
+    from neuralradiancecaching_tpu_torch.utils import profiling
+    with profiling.tracing(dev) as rec:
+        with rec.frame(0):
+            out = fn()
+    tally = collections.Counter()
+    for r in rec.records():
+        tally.update(r.counts)
+        tally[f"span {r.name}"] += 1
+    return out, tally
 
 
 def slice_config(width: int, height: int, small: bool = False):
@@ -493,16 +480,9 @@ def compare_k2(a, b) -> dict:
     return out
 
 
-def bound_ms(flop: float, nbytes: float) -> tuple[float, str]:
-    """The least time any route on the card could take for the useful
-    work: the larger of the operations over the tensor cores' bf16 peak
-    and the bytes over the memory rate."""
-    t_ops, t_bytes = flop / TENSOR_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def fp32_fma_bound_ms(flop: float, nbytes: float) -> float:
-    """The same with the FP32 FMA pipe's peak (the bound of PRs 1-3)."""
+    """``bound_ms`` with the FP32 FMA pipe's peak (the bound of PRs
+    1-3)."""
     return max(flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3)
 
 
@@ -519,125 +499,6 @@ def time_ms(fn, reps: int = 10, rounds: int = 5):
         sync()
         out.append(start.elapsed_time(end) / reps)
     return statistics.median(out)
-
-
-def stage(label, fn):
-    """One stage called alone between CUDA events (its device span, which
-    is its wall time when the host is the bound)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    sync()
-    start.record()
-    out = fn()
-    end.record()
-    sync()
-    log(f"  layer {label}: {start.elapsed_time(end):.3f} ms")
-    return out
-
-
-def profile_frame(state, scene, cfg, gen) -> None:
-    """One frame's device time by layer, then by kernel (torch.profiler)."""
-    from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import envmap, volume
-    from neuralradiancecaching_tpu_torch.render import frame, pathtrace
-    from neuralradiancecaching_tpu_torch.scene import camera
-
-    vol = cfg.volume
-    ro, rd = stage("pixel_rays", lambda: camera.pixel_rays(
-        scene.camera, cfg.render.width, cfg.render.height))
-    baked = stage("nrc.bake (oct rows)", lambda: nrc.bake(state, cfg))
-    entry, _, _ = volume.entry_exit_points(ro, rd, vol.box_size,
-                                           vol.box_center)
-    _, exit_e, _ = volume.entry_exit_points(entry, rd, vol.box_size,
-                                            vol.box_center)
-    stage("entry-tau quadrature (inside the walk)", lambda:
-          volume.transmittance(scene.density, entry, exit_e,
-                               cfg.path.entry_tau_steps, vol))
-    res = stage("trace_path (walk + shade, incl. entry tau)", lambda:
-                pathtrace.trace_path(scene, cfg, ro, rd, gen, use_nn=True))
-    feats = stage("encode_baked", lambda: nrc.encode_baked(
-        state, baked, res.query_pos, res.query_dir, cfg))
-    stage("query_mlp (K1)", lambda: nrc.query_mlp(state, feats, cfg))
-    stage("env composite", lambda: envmap.sample_direct(scene.env, rd,
-                                                        hpm=False))
-    stage("whole render_only_step", lambda: frame.render_only_step(
-        state, scene, gen, cfg))
-    profile_call("render_only_step",
-                 lambda: frame.render_only_step(state, scene, gen, cfg))
-
-
-def profile_call(label: str, fn) -> None:
-    """One call under torch.profiler: wall time, device busy and idle
-    share, kernel launches, and the top ops and kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # key_averages() walks every event of the trace: once per profile (a
-    # banded frame's trace holds ~10^6 of them)
-    events = prof.key_averages()
-    kernels_, ops = [], []
-    for e in events:
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            on_device = e.device_type == torch.autograd.DeviceType.CUDA
-            (kernels_ if on_device else ops).append((dev_us, e.count, e.key))
-    busy = sum(r[0] for r in kernels_)
-    # host waits on the stream: a blocking copy to the card (a tensor built
-    # from host data) synchronizes it, and the card idles until the host
-    # enqueues again
-    syncs = sum(e.count for e in events
-                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"))
-    log(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
-        f"{100 - 100 * busy / wall_us:.1f}%), "
-        f"{sum(r[1] for r in kernels_)} kernel launches, {syncs} stream "
-        f"synchronizations")
-    for kind, rows in (("op", ops), ("kernel", kernels_)):
-        for dev_us, count, key in sorted(rows, reverse=True)[:15]:
-            log(f"  {kind} {dev_us / 1e3:8.3f} ms {count:5d}x  {key[:80]}")
-
-
-def profile_frame_step(state, scene, cfg, gen) -> None:
-    """One online frame: its train and render halves (synchronized host
-    clock), the train half's stages each called alone, then the whole
-    frame under torch.profiler."""
-    from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
-                                                        targets)
-    halves: dict[str, float] = {}
-    frame.frame_step(state, scene, gen, cfg, timings=halves)
-    log(f"  layer frame_step train half: {halves['train'] * 1e3:.3f} ms, "
-        f"render half: {halves['render'] * 1e3:.3f} ms")
-    dev = scene.density.device
-    n = cfg.train.train_width * cfg.train.train_height
-    over, s_count = cfg.train.vertex_oversample, cfg.train.target_samples
-    u = stage("draw_train_uniforms", lambda: targets.draw_train_uniforms(
-        cfg, gen, dev))
-    ro, rd = stage(f"train_ray_pool ({over} jittered grids)",
-                   lambda: targets.train_ray_pool(scene, cfg, u.jitter))
-    stage(f"vertex walk alone (NN mode, {over * n} lanes)",
-          lambda: pathtrace.trace_path_collision(
-              scene, targets._train_walk_cfg(cfg), ro, rd, None,
-              use_nn=True, env_samples=0, uniforms=u.vertex))
-    batch = stage("generate_train_batch_for_rays (vertex walk + targets)",
-                  lambda: targets.generate_train_batch_for_rays(
-                      scene, cfg, ro, rd, u))
-    stage(f"cache_targets_collision alone (NEE + {s_count * n} target "
-          f"walks)", lambda: targets.cache_targets_collision(
-              scene, cfg, batch.pos, batch.dir, u.hg, u.target))
-    grads, _ = stage("compute_grads (oct encode, loss, autograd)",
-                     lambda: nrc.compute_grads(state, batch.pos, batch.dir,
-                                               batch.target, cfg))
-    stage("apply_grads (guarded Adam on MLP and table)",
-          lambda: nrc.apply_grads(state, grads, cfg))
-    profile_call("frame_step", lambda: frame.frame_step(state, scene, gen,
-                                                        cfg))
 
 
 def to_device(tree, device):
@@ -664,14 +525,14 @@ def state_to(state, device):
 
 def progressive_config(width: int, height: int, small: bool = False,
                        field_dtype: str = "bfloat16"):
-    """The port's bench config (``bench_torch.bench_config``: config 5 with
-    ``bench.py``'s production settings and the fused query MLP) at 1 spp,
-    with f32 fields and an f32 query when ``field_dtype`` is f32; the caps
-    come from ``bench_torch.probe_caps``. ``small`` cuts the scene and the
+    """The quality tool's config (``bench_torch.bench_config``: config 5
+    with ``bench.py``'s production settings and the fused query MLP) at 1
+    spp, with f32 fields and an f32 query when ``field_dtype`` is f32; the
+    caps come from :func:`probe_caps`. ``small`` cuts the scene and the
     train batch to the tests' size."""
     import bench_torch
     r = dataclasses.replace
-    cfg = bench_torch.bench_config(width, height, 1)
+    cfg = bench_torch.bench_config(width, height)
     if field_dtype != "bfloat16":
         cfg = r(cfg, mlp=r(cfg.mlp, inference_dtype=field_dtype),
                 volume=r(cfg.volume, field_dtype=field_dtype))
@@ -683,6 +544,27 @@ def progressive_config(width: int, height: int, small: bool = False,
                 train=r(cfg.train, train_width=16, train_height=16,
                         target_bounces=16))
     return cfg
+
+
+def probe_caps(cfg, scene, dev):
+    """The cap probes of ``benchmark/caps.py`` (the copy the benchmark's
+    cells use) on the port: (cfg with the caps, what they measured)."""
+    from benchmark import caps, spec
+    return caps.probe_caps(spec.Pkg(spec.PROGRAM), cfg, scene, dev)
+
+
+def query_fraction(cfg, scene, dev) -> float:
+    """The share of an NN walk's lanes that query the cache, over every
+    stride-th pixel ray of the frame (bench.py:161-203's query probe)."""
+    from neuralradiancecaching_tpu_torch.render import pathtrace
+    from neuralradiancecaching_tpu_torch.scene import camera
+    w, h = cfg.render.width, cfg.render.height
+    stride = max(1, (w * h) // (w * 64))
+    ro, rd = camera.pixel_rays(scene.camera, w, h)
+    res = pathtrace.trace_path(scene, cfg, ro[::stride], rd[::stride],
+                               torch.Generator(device=dev).manual_seed(99),
+                               use_nn=True)
+    return float((res.query_weight > 0).float().mean())
 
 
 def time_k1(params, x, mlp_cfg) -> dict:
@@ -731,16 +613,6 @@ def log_k1_times(label, rows, times, flop, nbytes) -> None:
         f"{fp32_fma_bound_ms(flop, nbytes):.4f} ms)")
 
 
-def k1_work(mlp_cfg, rows: int, row_bytes: int) -> tuple[float, float]:
-    """(FLOP, bytes) of K1 over ``rows`` rows: two per multiply-add of every
-    layer; each input row and output row moved once, the weights once."""
-    dims = [mlp_cfg.in_features] + [mlp_cfg.hidden] * (mlp_cfg.n_layers - 1)
-    macs = sum(a * b for a, b in zip(dims, dims[1:] + [mlp_cfg.out_features]))
-    weights = 4 * (macs + sum(dims[1:]) + mlp_cfg.out_features)
-    return (2.0 * rows * macs,
-            rows * (row_bytes + 4 * mlp_cfg.out_features) + weights)
-
-
 def ball_cloud(shape, seed: int = 0) -> np.ndarray:
     """A seeded random ball of density (the tiled tests' cloud): rays miss
     the box, graze it below the live threshold, or cross it."""
@@ -749,50 +621,6 @@ def ball_cloud(shape, seed: int = 0) -> np.ndarray:
     r = np.sqrt(sum(a ** 2 for a in np.meshgrid(*axes, indexing="ij")))
     return (rng.random(shape, dtype=np.float32) * 0.6 * (r < 0.4)).astype(
         np.float32)
-
-
-def count_calls(module, name: str):
-    """Wrap ``module.name`` with a call counter; returns (counter list,
-    restore function)."""
-    orig, calls = getattr(module, name), [0]
-
-    def counted(*args, **kw):
-        calls[0] += 1
-        return orig(*args, **kw)
-    setattr(module, name, counted)
-    return calls, lambda: setattr(module, name, orig)
-
-
-def bake_peaks(cfg, dens, env, dev) -> None:
-    """Peak device memory of each of ``make_scene``'s field bakes called
-    alone from the same corner table (the arguments ``make_scene`` gives
-    them), beside the size of its f32 output."""
-    from neuralradiancecaching_tpu_torch.ops import collision, lightfield
-    from neuralradiancecaching_tpu_torch.ops import volume
-    dens = torch.as_tensor(dens, device=dev, dtype=torch.float32)
-    env = torch.as_tensor(env, device=dev, dtype=torch.float32)
-    corner = volume.build_corner_table(dens)
-    bakes = {
-        "env_t_field": lambda: lightfield.build_transmittance_field(
-            corner, cfg.volume, steps=cfg.env_map.transmittance_steps),
-        "env_s_field": lambda: lightfield.build_scatter_field(
-            corner, env, cfg.volume, hg_g=cfg.volume.hg_g,
-            steps=(cfg.env_map.scatter_bake_steps
-                   or cfg.env_map.transmittance_steps),
-            quad_dirs=cfg.env_map.scatter_quad_dirs),
-        "coll_field": lambda: collision.build_collision_field(
-            corner, cfg.volume, steps=cfg.path.collision_field_steps)}
-    for name, fn in bakes.items():
-        sync()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        sync()
-        log(f"  {name} bake alone: f32 output "
-            f"{out.numel() * 4 / 2**30:.3f} GiB, peak above its inputs "
-            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
-        del out
 
 
 def progressive_small_vs_cpu(dev, field_dtype: str) -> None:
@@ -860,41 +688,30 @@ def progressive_small_vs_cpu(dev, field_dtype: str) -> None:
 
 
 def progressive_frame(dev, dens, env, params_he) -> dict:
-    """Config 5's progressive 1920x1080 frame on the card (phases 8-8h):
-    its scene bake and each field's bake peak, 3 warm-up train steps, the
-    probes and caps, the pose-static hoists, K1's bf16 mode vs its plain
-    version, 4+1 frames of
-    ``train_only_step`` -> ``bake`` -> ``render_banded`` with the launch
-    counts reset just before the timed frames and read just after, the
-    render half's stages and profile, and the card vs the CPU port on the
-    small packed frame. Returns K1's bf16 entry of the kernels' record."""
+    """Config 5's progressive 1920x1080 frame on the card (phases 8-8i):
+    its scene bake, 3 warm-up train steps, the probes and caps, the
+    pose-static hoists, K1's bf16 mode vs its plain version, P_FRAMES
+    frames of ``train_only_step`` -> ``bake`` -> ``render_banded`` under
+    the tracer (their kernel launches), K1 bf16 on the frame's real rows,
+    the data-parallel frame, the quality legs and the card vs the CPU port
+    on the small packed frame. Returns K1's bf16 entry of the kernels'
+    record and the quality legs."""
     from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
-    from neuralradiancecaching_tpu_torch.ops import volume
     from neuralradiancecaching_tpu_torch.render import frame, tiled
     from neuralradiancecaching_tpu_torch.scene import scene as scn
 
     # -- 8. config 5's scene: bf16 fields at (32, 64) buckets ---------------
     cfg = progressive_config(P_WIDTH, P_HEIGHT)
     n_pix = P_WIDTH * P_HEIGHT
-    torch.cuda.reset_peak_memory_stats()
-    timings: dict[str, float] = {}
-    t0 = time.perf_counter()
-    scene = scn.make_scene(cfg, dens, env, timings=timings, device=dev)
-    sync()
-    log(f"config 5 scene bake {time.perf_counter() - t0:.3f} s (dir buckets "
-        f"{cfg.volume.field_dir_buckets}, out buckets "
-        f"{cfg.volume.field_out_buckets}): " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in timings.items()))
+    scene = scn.make_scene(cfg, dens, env, device=dev)
+    log(f"config 5 scene (dir buckets {cfg.volume.field_dir_buckets}, out "
+        f"buckets {cfg.volume.field_out_buckets}):")
     for field in ("env_t_field", "env_s_field", "coll_field"):
         t = getattr(scene, field)
         check(t.dtype == torch.bfloat16, f"{field} is {t.dtype}")
         check(bool(torch.isfinite(t).all()), f"{field} not finite")
         log(f"  {field} {tuple(t.shape)} {t.dtype} mean "
             f"{float(t.float().mean()):.5f}")
-    log(f"peak memory during the config 5 bake: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    bake_peaks(cfg, dens, env, dev)
 
     # -- 8b. cache state and the bench's warm-up train steps ----------------
     state = nrc.init_state(torch.Generator(device=dev).manual_seed(cfg.seed),
@@ -907,30 +724,27 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     log(f"{P_WARMUP_STEPS} warm-up train_only_steps: mse "
         f"{[round(m, 5) for m in warm]}")
 
-    # -- 8c. the bench's probes and caps ------------------------------------
-    import bench_torch
-    t0 = time.perf_counter()
-    cfg, probes = bench_torch.probe_caps(cfg, scene, dev)
-    log(f"probes and caps ({time.perf_counter() - t0:.3f} s): "
-        f"{json.dumps(probes._asdict())}, query cap "
+    # -- 8c. the probes and caps ---------------------------------------------
+    qfrac = query_fraction(cfg, scene, dev)
+    cfg, probes = probe_caps(cfg, scene, dev)
+    probes["query_fraction"] = qfrac
+    log(f"probes and caps: {json.dumps(probes)}, query cap "
         f"{cfg.render.query_cap_fraction}")
-    check(0.0 < probes.pack <= 1.0, "no live rays")
+    check(0.0 < probes["live_pack_fraction"] <= 1.0, "no live rays")
 
     # -- 8d. pose-static hoists ---------------------------------------------
-    env_rgb = stage("frame_env_color (once per pose)",
-                    lambda: tiled.frame_env_color(scene, cfg))
-    volume.LAUNCHES = 0
-    pack = stage("frame_live_pack (once per pose, with the packed entry "
-                 "tau)", lambda: tiled.frame_live_pack(scene, cfg, BAND_ROWS))
-    K3_LAUNCHES["orbit pose's live pack"] = volume.LAUNCHES
-    check(volume.LAUNCHES > 0, "frame_live_pack's entry tau did not launch "
+    env_rgb = tiled.frame_env_color(scene, cfg)
+    pack, n = traced(dev, lambda: tiled.frame_live_pack(scene, cfg,
+                                                        BAND_ROWS))
+    K3_BY_PATH["orbit pose's live pack"] = n["k3_launches"]
+    check(n["k3_launches"] > 0, "frame_live_pack's entry tau did not launch "
           "the quadrature kernel")
-    log(f"frame_live_pack: quadrature kernel launches {volume.LAUNCHES}")
+    log(f"frame_live_pack: quadrature kernel launches {n['k3_launches']}")
     n_packed = pack.ro_p.shape[0] * pack.ro_p.shape[1]
     n_live = int(pack.val.sum())
     log(f"live-ray pack: {n_live} live rays of {n_pix}, packed to "
         f"{n_packed} lanes ({pack.ro_p.shape[0]} bands of {BAND_ROWS} rows)")
-    check(n_live == round(probes.live_frac * n_pix),
+    check(n_live == round(probes["live_fraction"] * n_pix),
           "the pack dropped live rays")
 
     # -- 8e. K1's bf16 mode vs its plain version ----------------------------
@@ -938,12 +752,12 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     params_bf = {k: v.to(torch.bfloat16) for k, v in params_he.items()}
     kgen = torch.Generator(device=dev).manual_seed(8)
     err = err_f64 = 0.0
-    for n in K1_BF16_SIZES + (n_packed,):
-        x = torch.randn((n, mlp.in_features), generator=kgen,
+    for n_rows in K1_BF16_SIZES + (n_packed,):
+        x = torch.randn((n_rows, mlp.in_features), generator=kgen,
                         device=dev).to(torch.bfloat16)
         abs_e, rel_e, f64_e, plain_f64 = compare_k1(params_bf, x, mlp)
         err, err_f64 = max(err, abs_e), max(err_f64, f64_e)
-        log(f"K1 bf16 vs plain n={n}: max abs {abs_e:.3e} max rel "
+        log(f"K1 bf16 vs plain n={n_rows}: max abs {abs_e:.3e} max rel "
             f"{rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
             f"{plain_f64:.3e}")
     check_k1_nonfinite(params_bf, mlp, torch.bfloat16, dev)
@@ -953,86 +767,51 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
     log_k1_times("K1 bf16", n_packed, k1_times, flop, nbytes)
     del x
 
-    # -- 8f. 4+1 progressive frames -----------------------------------------
-    def progressive(st):
-        sync()
-        t0 = time.perf_counter()
-        st, mse = frame.train_only_step(st, scene, gen, cfg)
-        sync()
-        t1 = time.perf_counter()
-        baked = nrc.bake(st, cfg)
-        img = tiled.render_banded(st, scene, gen, cfg, BAND_ROWS,
-                                  env_rgb=env_rgb, baked=baked, pack=pack)
-        sync()
-        t2 = time.perf_counter()
-        return st, float(mse), img, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    # -- 8f. P_FRAMES progressive frames under the tracer --------------------
+    def progressive():
+        nonlocal state
+        out = []
+        for _ in range(P_FRAMES):
+            state, mse = frame.train_only_step(state, scene, gen, cfg)
+            img = tiled.render_banded(state, scene, gen, cfg, BAND_ROWS,
+                                      env_rgb=env_rgb,
+                                      baked=nrc.bake(state, cfg), pack=pack)
+            out.append((float(mse), img))
+        return out
 
-    state, *_ = progressive(state)  # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BF16 = matmul.LAUNCHES = 0
-    whole, train, render, mses, means = [], [], [], [], []
-    for i in range(P_FRAMES):
-        state, mse, img, t_ms, r_ms = progressive(state)
-        whole.append(t_ms + r_ms)
-        train.append(t_ms)
-        render.append(r_ms)
-        mses.append(mse)
+    out, n = traced(dev, progressive)
+    mses = [m for m, _ in out]
+    means = []
+    for i, (_, img) in enumerate(out):
         check(tuple(img.shape) == (P_HEIGHT, P_WIDTH, 3), f"image {img.shape}")
         check(bool(torch.isfinite(img).all()), f"progressive frame {i} not "
               f"finite")
         means.append(float(img.mean()))
-    launches = fused_mlp.LAUNCHES_BF16
-    launches_f32, k2_launches = fused_mlp.LAUNCHES, matmul.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+    del out
+    launches = n["k1_bf16_launches"]
     check(launches >= P_FRAMES, f"K1 bf16 launched {launches} times in "
           f"{P_FRAMES} progressive frames")
     check(all(1e-3 < m < 1e3 for m in means), f"frame means {means}")
     check(all(np.isfinite(mses)), f"train mse {mses}")
-
-    def med(xs, lo, hi):
-        return statistics.median(xs[lo:hi])
-    h = P_FRAMES // 2
-    log(f"progressive frame {P_WIDTH}x{P_HEIGHT} (train_only_step -> bake "
-        f"-> render_banded, {BAND_ROWS}-row bands): ms "
-        f"{[round(t, 3) for t in whole]}, median {med(whole, 0, None):.3f} "
-        f"(first half {med(whole, 0, h):.3f}, second half "
-        f"{med(whole, h, None):.3f}), {n_pix / med(whole, 0, None) / 1e3:.3f}"
-        f" Mrays/s; train half (train_only_step) "
-        f"{[round(t, 3) for t in train]}, median {med(train, 0, None):.3f} "
-        f"ms; render half (bake + render_banded) "
-        f"{[round(t, 3) for t in render]}, median {med(render, 0, None):.3f}"
-        f" ms, {n_pix / med(render, 0, None) / 1e3:.3f} Mrays/s; mse "
-        f"{[round(m, 5) for m in mses]}; image means "
+    log(f"{P_FRAMES} progressive frames {P_WIDTH}x{P_HEIGHT} "
+        f"(train_only_step -> bake -> render_banded, {BAND_ROWS}-row bands): "
+        f"mse {[round(m, 5) for m in mses]}; image means "
         f"{[round(m, 5) for m in means]}; K1 bf16 launches {launches}, K1 "
-        f"f32 launches {launches_f32}, K2 launches {k2_launches}; peak "
-        f"memory {peak / 2**30:.3f} GiB")
+        f"f32 launches {n['k1_f32_launches']}, K2 launches "
+        f"{n['k2_launches']}")
 
-    # -- 8g. the render half's stages, profile, K1 bf16 on the real rows ----
-    baked = stage("nrc.bake (bf16 oct rows)", lambda: nrc.bake(state, cfg))
-    stage("entry-tau quadrature over the packed lanes (hoisted into "
-          "frame_live_pack: once per pose)", lambda: tiled._entry_tau(
-              scene, cfg, pack.ro_p.reshape(-1, 3), pack.rd_p.reshape(-1, 3)))
-    inv, rgb_p, trans_p, qp, qd, qw, ev = stage(
-        f"packed collect-mode walk ({n_packed} lanes)",
-        lambda: tiled._packed_bands_program(scene, gen, cfg, BAND_ROWS,
-                                            pack))
-    feats = stage("encode_baked (bf16) over the packed lanes",
-                  lambda: nrc.encode_baked(state, baked, qp, qd, cfg))
-    stage("query_mlp (K1 bf16)", lambda: nrc.query_mlp(state, feats, cfg))
-    stage("_finish_packed (deferred shade, bf16 query, un-pack, env)",
-          lambda: tiled._finish_packed(state, baked, scene, inv, rgb_p,
-                                       trans_p, qp, qd, qw, ev, cfg, env_rgb))
-    calls, restore = count_calls(volume, "transmittance")
-    stage("whole render_banded", lambda: tiled.render_banded(
+    # -- 8g. K1 bf16 on the frame's real rows; no entry tau per frame --------
+    baked = nrc.bake(state, cfg)
+    _, _, _, qp, qd, qw, _ = tiled._packed_bands_program(scene, gen, cfg,
+                                                         BAND_ROWS, pack)
+    feats = nrc.encode_baked(state, baked, qp, qd, cfg)
+    _, n = traced(dev, lambda: tiled.render_banded(
         state, scene, gen, cfg, BAND_ROWS, env_rgb=env_rgb, baked=baked,
         pack=pack))
-    restore()
-    log(f"  entry-tau quadratures (volume.transmittance calls) in one "
-        f"render_banded: {calls[0]}")
-    check(calls[0] == 0, "render_banded ran the entry-tau quadrature")
-    profile_call("render_banded", lambda: tiled.render_banded(
-        state, scene, gen, cfg, BAND_ROWS, env_rgb=env_rgb, baked=baked,
-        pack=pack))
+    log(f"  entry-tau quadratures (transmittance spans) in one "
+        f"render_banded: {n['span transmittance']}")
+    check(n["span transmittance"] == 0,
+          "render_banded ran the entry-tau quadrature")
     log(f"real bf16 feature rows {tuple(feats.shape)}, "
         f"{float((qw > 0).float().mean()):.4f} of the packed lanes querying")
     for label, params in (("state weights", {
@@ -1043,7 +822,7 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
         log(f"K1 bf16 vs plain on real rows ({label}): max abs {abs_e:.3e} "
             f"max rel {rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
             f"{plain_f64:.3e}")
-    del baked, feats, ev, qp, qd, qw, inv, rgb_p, trans_p
+    del baked, feats, qp, qd, qw
     torch.cuda.empty_cache()
 
     phase("16a: config 5 data parallel")
@@ -1069,9 +848,9 @@ def progressive_frame(dev, dens, env, params_he) -> dict:
 
 
 def quality_legs(dev, scene, cfg, state) -> dict:
-    """The port's bench's ground-truth legs (``bench_torch``'s
+    """The quality tool's ground-truth legs (``bench_torch``'s
     ``_ground_truth_legs``, bench.py:755-829) on the card at Q_SIDE^2 on
-    config 5's scene (the bench's scene keeps config 5's camera), after
+    config 5's scene (the tool's scene keeps config 5's camera), after
     Q_TRAIN_STEPS more train steps: the unbiased oracle in twins of
     2 x Q_GT_SPP frames, the shipped no-cache collision render and the NN
     render (``bench_torch.quality_config``: query cap 0.375) in twins of
@@ -1081,35 +860,22 @@ def quality_legs(dev, scene, cfg, state) -> dict:
     from neuralradiancecaching_tpu_torch.render import frame
     qcfg = bench_torch.quality_config(cfg, Q_SIDE)
     gen = torch.Generator(device=dev).manual_seed(1000)
-    sync()
-    t0 = time.perf_counter()
     mses = []
     for _ in range(Q_TRAIN_STEPS):
         state, mse = frame.train_only_step(state, scene, gen, cfg)
         mses.append(mse)
-    sync()
-    train_s = time.perf_counter() - t0
     mses = [float(m) for m in mses]
     check(bool(np.isfinite(mses).all()), "quality-leg train mse not finite")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     legs = bench_torch._ground_truth_legs(qcfg, scene, state, dev, Q_GT_SPP,
                                           Q_SIDE, spp2=False)
-    legs_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    _, ocfg = bench_torch.ground_truth_configs(qcfg, Q_SIDE)
-    profile_call(f"oracle render_only_step ({Q_SIDE}^2)", lambda:
-                 frame.render_only_step(state, scene, torch.Generator(
-                     device=dev).manual_seed(1), ocfg))
     legs.update(train_steps=Q_TRAIN_STEPS, size=Q_SIDE,
                 query_cap_fraction=qcfg.render.query_cap_fraction)
     log(f"quality legs {Q_SIDE}x{Q_SIDE} (bench protocol): " + json.dumps(
         legs))
-    log(f"  seconds: {Q_TRAIN_STEPS} train steps {train_s:.3f} "
-        f"({train_s * 1e3 / Q_TRAIN_STEPS:.3f} ms/step, mse first 8 "
-        f"{np.mean(mses[:8]):.5f}, last 8 {np.mean(mses[-8:]):.5f}); the "
-        f"legs' twins {legs_s:.3f} (oracle 4 x {Q_GT_SPP}, collision and NN "
-        f"2 x {Q_GT_SPP} frames each); peak memory {peak / 2**30:.3f} GiB")
+    log(f"  {Q_TRAIN_STEPS} train steps: mse first 8 "
+        f"{np.mean(mses[:8]):.5f}, last 8 {np.mean(mses[-8:]):.5f}; the "
+        f"legs' twins: oracle 4 x {Q_GT_SPP}, collision and NN 2 x "
+        f"{Q_GT_SPP} frames each")
     check(all(np.isfinite(v) for v in legs.values()), "quality legs not "
           "finite")
     # a gross check of the two samplers against each other (the cache
@@ -1149,62 +915,17 @@ def small_cut(cfg):
                      target_bounces=16))
 
 
-def reset_counts() -> None:
-    """Every kernel's launch count and the peak-memory mark set to 0."""
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul, volume
-    fused_mlp.LAUNCHES = fused_mlp.LAUNCHES_BF16 = matmul.LAUNCHES = 0
-    volume.LAUNCHES = 0
-    torch.cuda.reset_peak_memory_stats()
-
-
-def timed_frames(fn, n):
-    """fn(i) for i in 0..n (0 a warm-up): the host ms of frames 1..n, each
-    ending in a synchronize, and their outputs; the launch counts and the
-    peak-memory mark are reset after the warm-up."""
-    fn(0)
-    sync()
-    reset_counts()
-    ms, outs = [], []
-    for i in range(1, n + 1):
-        sync()
-        t0 = time.perf_counter()
-        outs.append(fn(i))
-        sync()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return ms, outs
-
-
-def stage_peak(fn) -> int:
-    """The peak device memory of one call of fn (bytes)."""
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    fn()
-    sync()
-    return torch.cuda.max_memory_allocated()
-
-
-def banded_frames(label: str, fn, band: int, unbanded_ms: float,
-                  unbanded_peak: int) -> None:
-    """A preset's 800x800 frame in the CLI's bands, warm (phases 9b, 10b):
-    BANDED_FRAMES timed frames after a warm-up and their peak memory, both
-    beside the unbanded frame's in this run. Not profiled: a banded
-    frame's trace holds ~10^6 events (134,586 and 254,817 launches for
-    configs 4 and 3, PERF.md), and reading it back takes tens of
-    seconds."""
+def banded_frame(label: str, fn, band: int) -> None:
+    """A preset's 800x800 frame in the CLI's bands (phases 9b, 10b): one
+    frame, its shape and finiteness checked."""
     phase(f"9b/10b: {label} banded")
-    ms, imgs = timed_frames(lambda i: fn(), BANDED_FRAMES)
-    peak = torch.cuda.max_memory_allocated()
-    check(all(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
-              and bool(torch.isfinite(img).all()) for img in imgs),
+    img = fn()
+    check(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
+          and bool(torch.isfinite(img).all()),
           f"{label} banded frame not finite")
-    med = statistics.median(ms)
     log(f"{label} render_banded {PRESET_SIDE}x{PRESET_SIDE} in "
-        f"{PRESET_SIDE // band} bands of {band} rows (warm): ms "
-        f"{[round(t, 3) for t in ms]}, median {med:.3f} ms, "
-        f"{med / unbanded_ms:.2f}x the unbanded {unbanded_ms:.3f} ms; peak "
-        f"memory {peak / 2**30:.3f} GiB against the unbanded "
-        f"{unbanded_peak / 2**30:.3f} GiB")
-    del imgs
+        f"{PRESET_SIDE // band} bands of {band} rows: image mean "
+        f"{float(img.mean()):.5f}")
 
 
 def preset_frames(dev, dens, env, params_he):
@@ -1212,18 +933,15 @@ def preset_frames(dev, dens, env, params_he):
     config 3's render_only_step (reference sampler, cache off: no bake, no
     query), config 4's frame_step (the reference vertex walk and 64-step
     target walks, the train step, the two-phase march, the compacted
-    shade, the K1 f32 query), 32 train_only_steps whose mse must fall, the
-    stages of both frames, one profiled frame each, both renders in the
-    CLI's 32-row bands (warm, beside the unbanded ones), and K1
-    f32 held to its plain version on config 4's real query rows. Returns
-    (K1 f32's
-    launches over the 4 timed config-4 frames, its max abs error vs plain
-    and vs float64 there)."""
+    shade, the K1 f32 query), N_FRAMES of each under the tracer (their
+    kernel launches), 32 train_only_steps whose mse must fall, both renders
+    in the CLI's 32-row bands, and K1 f32 held to its plain version on
+    config 4's real query rows. Returns (K1 f32's launches in the
+    config-4 frames, its max abs error vs plain and vs float64 there, its
+    launches in the dense/hash frames and in the data-parallel frame)."""
     from neuralradiancecaching_tpu_torch import cli
     from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
-    from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
-                                                        targets, tiled)
+    from neuralradiancecaching_tpu_torch.render import frame, pathtrace, tiled
     from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
     c3, c4 = preset_config("config3"), preset_config("config4")
     check(c3.path.sampler == c4.path.sampler == "reference"
@@ -1233,129 +951,78 @@ def preset_frames(dev, dens, env, params_he):
     # both
     check(c3.volume == c4.volume and c3.env_map == c4.env_map,
           "configs 3 and 4 differ in their scene")
-    timings: dict[str, float] = {}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    scene = scn.make_scene(c3, dens, env, timings=timings, device=dev)
-    sync()
-    log(f"configs 3/4 scene bake {time.perf_counter() - t0:.3f} s: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-        + f"; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    n_pix = PRESET_SIDE * PRESET_SIDE
+    scene = scn.make_scene(c3, dens, env, device=dev)
     state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), c4,
                            device=dev)
 
     phase("9: config 3")
     # -- 9. config 3: the cache-off reference render --------------------------
     gen = torch.Generator(device=dev).manual_seed(3)
-    ms, imgs = timed_frames(
-        lambda i: frame.render_only_step(state, scene, gen, c3), N_FRAMES)
-    peak = torch.cuda.max_memory_allocated()
+    imgs, n = traced(dev, lambda: [frame.render_only_step(state, scene, gen,
+                                                          c3)
+                                   for _ in range(N_FRAMES)])
     means = [float(img.mean()) for img in imgs]
     check(all(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
               and bool(torch.isfinite(img).all()) for img in imgs),
           "config 3 frame not finite")
     check(all(1e-3 < m < 1e3 for m in means), f"config 3 means {means}")
-    check(fused_mlp.LAUNCHES == 0, "config 3 (cache off) launched K1")
-    med = statistics.median(ms)
+    check(n["span k1"] == 0, "config 3 (cache off) launched K1")
     log(f"config 3 render_only_step {PRESET_SIDE}x{PRESET_SIDE} (reference "
-        f"sampler, {c3.path.max_bounces} slots, dense shade, cache off): ms "
-        f"{[round(t, 3) for t in ms]}, median {med:.3f} ms, "
-        f"{n_pix / med / 1e3:.3f} Mrays/s, means "
-        f"{[round(m, 5) for m in means]}, K1 launches {fused_mlp.LAUNCHES}, "
-        f"peak memory {peak / 2**30:.3f} GiB")
-    ro, rd = camera.pixel_rays(scene.camera, PRESET_SIDE, PRESET_SIDE)
-    stage("config 3 trace_path (march + dense shade)", lambda:
-          pathtrace.trace_path(scene, c3, ro, rd, gen, use_nn=False))
-    stage("config 3 whole render_only_step", lambda: frame.render_only_step(
-        state, scene, gen, c3))
-    profile_call("config 3 render_only_step", lambda: frame.render_only_step(
-        state, scene, gen, c3))
+        f"sampler, {c3.path.max_bounces} slots, dense shade, cache off): "
+        f"means {[round(m, 5) for m in means]}, K1 launches "
+        f"{n['k1_f32_launches'] + n['k1_bf16_launches']}")
     del imgs
-    # the same frame as the CLI renders it (its bands above 512x512), warm
+    # the same frame as the CLI renders it (its bands above 512x512)
     band = cli._band_rows(PRESET_SIDE, PRESET_SIDE)
-    banded_frames("config 3", lambda: tiled.render_banded(
-        state, scene, gen, c3, band_rows=band), band, med, peak)
+    banded_frame("config 3", lambda: tiled.render_banded(
+        state, scene, gen, c3, band_rows=band), band)
 
     phase("10: config 4")
     # -- 10. config 4: the online frame with the reference sampler ------------
     gen = torch.Generator(device=dev).manual_seed(4)
-    halves: list[dict] = []
 
-    def online(i):
+    def online():
         nonlocal state
-        h: dict[str, float] = {}
-        state, out = frame.frame_step(state, scene, gen, c4, timings=h)
-        if i:
-            halves.append(h)
-        return out
+        outs = []
+        for _ in range(N_FRAMES):
+            state, out = frame.frame_step(state, scene, gen, c4)
+            outs.append(out)
+        return outs
 
-    ms, outs = timed_frames(online, N_FRAMES)
-    launches = fused_mlp.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+    outs, n = traced(dev, online)
+    launches = n["k1_f32_launches"]
     mses = [float(o.mse) for o in outs]
     check(all(bool(torch.isfinite(o.image).all()) for o in outs)
           and all(np.isfinite(mses)), "config 4 frame not finite")
     check(launches >= N_FRAMES, f"K1 f32 launched {launches} times in "
           f"{N_FRAMES} config-4 frames")
-    train = [h["train"] * 1e3 for h in halves]
-    render = [h["render"] * 1e3 for h in halves]
     log(f"config 4 frame_step {PRESET_SIDE}x{PRESET_SIDE} (reference "
         f"sampler, train {c4.train.train_width}x{c4.train.train_height} x "
         f"{c4.train.target_samples} target walks of "
-        f"{c4.train.target_bounces} steps): ms {[round(t, 3) for t in ms]}, "
-        f"median {statistics.median(ms):.3f}; train half "
-        f"{[round(t, 3) for t in train]}, median "
-        f"{statistics.median(train):.3f}; render half "
-        f"{[round(t, 3) for t in render]}, median "
-        f"{statistics.median(render):.3f} ms, "
-        f"{n_pix / statistics.median(render) / 1e3:.3f} Mrays/s; mse "
+        f"{c4.train.target_bounces} steps): mse "
         f"{[round(m, 5) for m in mses]}; image means "
         f"{[round(float(o.image.mean()), 5) for o in outs]}; K1 f32 launches "
-        f"{launches}, K1 bf16 {fused_mlp.LAUNCHES_BF16}, K2 "
-        f"{matmul.LAUNCHES}; peak memory {peak / 2**30:.3f} GiB")
+        f"{launches}, K1 bf16 {n['k1_bf16_launches']}, K2 "
+        f"{n['k2_launches']}")
     del outs
 
     steps = []
-    sync()
-    t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         state, mse = frame.train_only_step(state, scene, gen, c4)
         steps.append(mse)
-    sync()
-    per_step = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     steps = [float(m) for m in steps]
     first, last = np.mean(steps[:8]), np.mean(steps[-8:])
-    log(f"config 4: {TRAIN_STEPS} train_only_steps {per_step:.3f} ms/step, "
-        f"mse {[round(m, 4) for m in steps]}, mean of the first 8 "
+    log(f"config 4: {TRAIN_STEPS} train_only_steps, mse "
+        f"{[round(m, 4) for m in steps]}, mean of the first 8 "
         f"{first:.5f}, of the last 8 {last:.5f}")
     check(bool(np.isfinite(steps).all()), "config 4 train mse not finite")
     check(last < first, f"config 4's mse did not fall: {first} -> {last}")
 
-    # the stages of both halves, each called alone
-    u = stage("config 4 draw_train_uniforms", lambda:
-              targets.draw_train_uniforms(c4, gen, dev))
-    tro, trd = targets.train_ray_pool(scene, c4, u.jitter)
-    pos, d = stage("config 4 choose_train_vertices (vertex walk)", lambda:
-                   targets.choose_train_vertices(scene, c4, tro, trd,
-                                                 u.vertex[0]))
-    s_count = c4.train.target_samples
-    stage(f"config 4 trace_target_paths ({s_count * pos.shape[0]} walks of "
-          f"{c4.train.target_bounces} steps, dense shade)", lambda:
-          targets.trace_target_paths(scene, c4, pos.repeat(s_count, 1),
-                                     d.repeat(s_count, 1), u.target[0]))
-    batch = targets.generate_train_batch_for_rays(scene, c4, tro, trd, u)
-    grads, _ = stage("config 4 compute_grads", lambda: nrc.compute_grads(
-        state, batch.pos, batch.dir, batch.target, c4))
-    stage("config 4 apply_grads", lambda: nrc.apply_grads(state, grads, c4))
-    baked = stage("config 4 nrc.bake", lambda: nrc.bake(state, c4))
-    res = stage("config 4 trace_path (two-phase march + compacted shade)",
-                lambda: pathtrace.trace_path(scene, c4, ro, rd, gen,
-                                             use_nn=True))
-    feats = stage("config 4 encode_baked", lambda: nrc.encode_baked(
-        state, baked, res.query_pos, res.query_dir, c4))
-    stage("config 4 query_mlp (K1 f32)", lambda: nrc.query_mlp(state, feats,
-                                                                c4))
+    # K1 f32 on the render's real query rows
+    ro, rd = camera.pixel_rays(scene.camera, PRESET_SIDE, PRESET_SIDE)
+    res = pathtrace.trace_path(scene, c4, ro, rd, gen, use_nn=True)
+    feats = nrc.encode_baked(state, nrc.bake(state, c4), res.query_pos,
+                             res.query_dir, c4)
     err = err_f64 = 0.0
     for label, params in (("state weights", state.mlp_params),
                           ("O(1) weights", params_he)):
@@ -1366,21 +1033,17 @@ def preset_frames(dev, dens, env, params_he):
             f"float64: kernel {f64_e:.3e}, plain {plain_f64:.3e}")
     log(f"  config 4 render: {float((res.query_weight > 0).float().mean()):.4f}"
         f" of the rays query the cache")
+    del feats
     phase("10c: dense/hash")
     # -- 10c. the same frame with the dense bake and the hash train encode
-    launches_dense = dense_hash_frames(
-        scene, state, c4, gen, batch, res, peak,
-        {"frame": ms, "train half": train, "render half": render})
+    launches_dense = dense_hash_frames(dev, scene, state, c4, gen, res)
+    del res
     phase("16b: config 4 data parallel")
     # -- 16b. the same frame data-parallel ----------------------------------
     launches_dp = dp_preset(dev, scene, state, c4)
-    profile_call("config 4 frame_step", lambda: frame.frame_step(
-        state, scene, gen, c4))
-    # the render half as the CLI's nrc-online renders it, banded, warm
-    peak_r = stage_peak(lambda: frame.render_only_step(state, scene, gen, c4))
-    banded_frames("config 4", lambda: tiled.render_banded(
-        state, scene, gen, c4, band_rows=band), band,
-        statistics.median(render), peak_r)
+    # the render half as the CLI's nrc-online renders it, banded
+    banded_frame("config 4", lambda: tiled.render_banded(
+        state, scene, gen, c4, band_rows=band), band)
     return launches, err, err_f64, launches_dense, launches_dp
 
 
@@ -1391,68 +1054,35 @@ def dense_hash_config(c4):
     return r(c4, mrhe=r(c4.mrhe, inference_bake="dense", train_encode="hash"))
 
 
-def in_turns(fns: dict) -> dict:
-    """Each of two callables timed with time_ms in turns (a, b, b, a) after
-    a warm-up: {name: (median ms, both runs)}."""
-    a, b = fns
-    for fn in fns.values():
-        fn()
-    sync()
-    runs: dict[str, list] = {a: [], b: []}
-    for k in (a, b, b, a):
-        runs[k].append(time_ms(fns[k], STAGE_REPS, STAGE_ROUNDS))
-    return {k: (statistics.median(v), tuple(v)) for k, v in runs.items()}
-
-
-def dense_hash_frames(scene, state, c4, gen, batch, res, oct_peak: int,
-                      oct_ms: dict) -> int:
+def dense_hash_frames(dev, scene, state, c4, gen, res) -> int:
     """Config 4 as it ships at 800x800 with the dense inference bake and
-    the hash-path train encode (phase 10c), beside phase 10's oct-path
-    frames in the same process (``oct_ms``: their frame, train-half and
-    render-half ms): DENSE_FRAMES timed frame_steps after a warm-up (K1 f32
-    on the query), their halves and peak memory, one profiled frame, and
-    in turns against the oct path: ``nrc.bake``, ``encode_baked`` on the
-    frame's 640,000 query rows (whose in-box rows must agree),
-    ``compute_grads`` on one train batch. Returns K1 f32's launches in the
-    timed frames."""
+    the hash-path train encode (phase 10c): DENSE_FRAMES frame_steps under
+    the tracer (K1 f32 on the query), and ``encode_baked`` dense against
+    the oct path on the frame's 640,000 query rows ``res``, whose in-box
+    rows must agree. Returns K1 f32's launches in the frames."""
     from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, mrhe
+    from neuralradiancecaching_tpu_torch.ops import mrhe
     from neuralradiancecaching_tpu_torch.render import frame
     cd = dense_hash_config(c4)
-    st = state
-    halves: list[dict] = []
 
-    def online(i):
-        nonlocal st
-        h: dict[str, float] = {}
-        st, out = frame.frame_step(st, scene, gen, cd, timings=h)
-        if i:
-            halves.append(h)
-        return out
+    def online():
+        st, outs = state, []
+        for _ in range(DENSE_FRAMES):
+            st, out = frame.frame_step(st, scene, gen, cd)
+            outs.append(out)
+        return outs
 
-    ms, outs = timed_frames(online, DENSE_FRAMES)
-    launches = fused_mlp.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+    outs, n = traced(dev, online)
+    launches = n["k1_f32_launches"]
     mses = [float(o.mse) for o in outs]
     check(all(bool(torch.isfinite(o.image).all()) for o in outs)
           and all(np.isfinite(mses)), "dense/hash config-4 frame not finite")
     check(launches >= DENSE_FRAMES, f"K1 f32 launched {launches} times in "
           f"{DENSE_FRAMES} dense/hash config-4 frames")
-    dense_ms = {"frame": ms,
-                "train half": [h["train"] * 1e3 for h in halves],
-                "render half": [h["render"] * 1e3 for h in halves]}
     log(f"config 4 frame_step {PRESET_SIDE}x{PRESET_SIDE}, dense bake + hash "
-        f"train encode: " + "; ".join(
-            f"{k} ms {[round(t, 3) for t in v]}, median "
-            f"{statistics.median(v):.3f} (oct path, phase 10: median "
-            f"{statistics.median(oct_ms[k]):.3f})"
-            for k, v in dense_ms.items())
-        + f"; mse {[round(m, 5) for m in mses]}; K1 f32 launches "
-        f"{launches}; peak memory {peak / 2**30:.3f} GiB (oct path "
-        f"{oct_peak / 2**30:.3f}) [{CARD}]")
+        f"train encode: mse {[round(m, 5) for m in mses]}; K1 f32 launches "
+        f"{launches}")
     del outs
-    profile_call("config 4 frame_step, dense bake + hash train encode",
-                 lambda: frame.frame_step(st, scene, gen, cd))
     baked = {"oct": nrc.bake(state, c4), "dense": nrc.bake(state, cd)}
     log(f"  baked rows: oct {tuple(baked['oct'].shape)}, dense "
         f"{tuple(baked['dense'].shape)} ({baked['dense'].numel() * 4 / 1e6:.1f}"
@@ -1466,24 +1096,6 @@ def dense_hash_frames(scene, state, c4, gen, batch, res, oct_peak: int,
     log(f"  encode_baked dense vs oct on {int(inside.sum())} in-box query rows "
         f"of {qp.shape[0]}: max abs diff {diff:.3e}")
     check(diff <= 1e-5, "the dense encode disagrees with the oct encode")
-    times = {
-        "nrc.bake": in_turns({
-            "oct": lambda: nrc.bake(state, c4),
-            "dense": lambda: nrc.bake(state, cd)}),
-        f"encode_baked ({qp.shape[0]} rows)": in_turns({
-            "oct": lambda: nrc.encode_baked(state, baked["oct"], qp, qd, c4),
-            "dense": lambda: nrc.encode_baked(state, baked["dense"], qp, qd,
-                                              cd)}),
-        f"compute_grads ({batch.pos.shape[0]} rows)": in_turns({
-            "oct": lambda: nrc.compute_grads(state, batch.pos, batch.dir,
-                                             batch.target, c4),
-            "hash": lambda: nrc.compute_grads(state, batch.pos, batch.dir,
-                                              batch.target, cd)})}
-    for label, t in times.items():
-        (a, (ta, ra)), (b, (tb, rb)) = t.items()
-        log(f"  layer {label}: {a} {ta:.3f} ms {tuple(round(x, 3) for x in ra)}"
-            f", {b} {tb:.3f} ms {tuple(round(x, 3) for x in rb)} "
-            f"({tb / ta:.2f}x) [{CARD}]")
     return launches
 
 
@@ -1897,11 +1509,10 @@ def mnist_run() -> dict:
 def offline_trace(dev, dens) -> dict:
     """The offline path tracer (phase 15) on the stand-in cloud's corner
     table at 800x800 with OfflinePTConfig's defaults (32 bounces, 16
-    transmittance steps, 12 shadow samples) from config 4's camera:
-    OFFLINE_FRAMES timed traces after a warm-up, a profiled one (its
-    launches), the peak memory; the image finite with max > 0 and the
-    export angles in range; then at 32x32 the card against the CPU port
-    on the same uniforms, every lane within 1e-4 + 1e-3 |ref|."""
+    transmittance steps, 12 shadow samples) from config 4's camera: one
+    trace, its image finite with max > 0 and its export angles in range;
+    then at 32x32 the card against the CPU port on the same uniforms,
+    every lane within 1e-4 + 1e-3 |ref|."""
     from neuralradiancecaching_tpu_torch.ops import volume
     from neuralradiancecaching_tpu_torch.render import offline_pathtracer as opt
     from neuralradiancecaching_tpu_torch.scene import camera
@@ -1912,13 +1523,7 @@ def offline_trace(dev, dens) -> dict:
                                PRESET_SIDE, PRESET_SIDE)
     gen = torch.Generator(device=dev).manual_seed(15)
     u = opt.draw_offline_uniforms(gen, ocfg, ro.shape[0])
-
-    def run(i):
-        return opt.trace(field, c4.volume, ocfg, OFFLINE_SUN, 1.0, ro, rd, u)
-
-    ms, outs = timed_frames(run, OFFLINE_FRAMES)
-    peak = torch.cuda.max_memory_allocated()
-    res = outs[-1]
+    res = opt.trace(field, c4.volume, ocfg, OFFLINE_SUN, 1.0, ro, rd, u)
     d = res.export_dir
     check(bool(torch.isfinite(res.color).all())
           and float(res.color.max()) > 0.0, "offline trace not finite or "
@@ -1928,16 +1533,13 @@ def offline_trace(dev, dens) -> dict:
           and float(d[:, 1].min()) >= -1e-5
           and float(d[:, 1].max()) <= np.pi + 1e-5,
           "offline export angles out of range")
-    med = statistics.median(ms)
+    out = {"mean_color": float(res.color.mean()),
+           "max_color": float(res.color.max())}
     log(f"offline trace {PRESET_SIDE}x{PRESET_SIDE} ({ocfg.max_bounces} "
         f"bounces, {ocfg.transmittance_steps} transmittance steps, "
-        f"{ocfg.shadow_samples} shadow samples): ms "
-        f"{[round(t, 3) for t in ms]}, median {med:.3f}, "
-        f"{PRESET_SIDE ** 2 / med / 1e3:.3f} Mrays/s; mean color "
-        f"{float(res.color.mean()):.5f}, max {float(res.color.max()):.5f}; "
-        f"peak memory {peak / 2**30:.3f} GiB [{CARD}]")
-    del outs, res
-    profile_call("offline trace", lambda: run(0))
+        f"{ocfg.shadow_samples} shadow samples): mean color "
+        f"{out['mean_color']:.5f}, max {out['max_color']:.5f}")
+    del res
 
     # the card vs the CPU port at 32x32 on the same uniforms
     ro_s, rd_s = camera.pixel_rays(camera.make_camera(c4.camera, "cpu"), 32,
@@ -1959,7 +1561,7 @@ def offline_trace(dev, dens) -> dict:
         check(bool(np.isfinite(g).all()) and bool(ok.all()),
               f"the card's offline trace ({name}) disagrees with the CPU "
               f"port")
-    return {"ms": ms, "peak_gib": peak / 2**30}
+    return out
 
 
 def same_frame(label: str, ref, out, lr: float) -> dict:
@@ -1993,77 +1595,36 @@ def same_frame(label: str, ref, out, lr: float) -> dict:
     return res
 
 
-def dp_in_turns(label: str, draw, single, data_parallel, counter: str,
-                lr: float) -> dict:
+def dp_same_frame(dev, label: str, draw, single, data_parallel, counter: str,
+                  lr: float) -> int:
     """A data-parallel path at world size 1 beside its single-device path
-    (phases 16a-b): both on one set of draws (held equal by
-    :func:`same_frame`; also the warm-up), then DP_TURNS rounds of
-    (single, DP, DP, single) frames, each on fresh draws and ending in a
-    synchronize; the DP frames' K1 launches (the count set to 0 just
-    before each DP frame, read just after); then DP_TRACED more DP frames
-    outside the timed turns under ``utils.profiling.tracing``, for the
-    collectives' own times (the device milliseconds of the tracer's
-    ``dp.all_reduce`` and ``dp.all_gather`` spans). Both sides of the turns
-    run untraced."""
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp
-    from neuralradiancecaching_tpu_torch.utils import profiling
-    dev = torch.device("cuda", torch.cuda.current_device())
+    (phases 16a-b) on one set of draws, held equal by :func:`same_frame`;
+    the DP frame runs under the tracer, so its K1 launches (the count
+    ``counter``) and its collectives (the ``dp.all_reduce`` and
+    ``dp.all_gather`` spans) are read from it. Returns the launches."""
     d = draw()
-    eq = same_frame(label, single(d), data_parallel(d), lr)
-    ms = {"single": [], "dp": []}
-    coll: dict[str, list] = {}
-    launches = 0
-    for _ in range(DP_TURNS):
-        for which in ("single", "dp", "dp", "single"):
-            d = draw()
-            sync()
-            if which == "dp":
-                setattr(fused_mlp, counter, 0)
-            t0 = time.perf_counter()
-            (data_parallel if which == "dp" else single)(d)
-            sync()
-            ms[which].append((time.perf_counter() - t0) * 1e3)
-            if which == "dp":
-                launches += getattr(fused_mlp, counter)
-    for _ in range(DP_TRACED):
-        d = draw()
-        sync()
-        with profiling.tracing(dev) as rec:
-            data_parallel(d)
-        for r in rec.records():
-            if r.name.startswith("dp."):
-                coll.setdefault(r.name[3:], []).append(r.device_ms)
-    n_dp = 2 * DP_TURNS
-    out = {"single_ms": ms["single"], "dp_ms": ms["dp"],
-           "single_median_ms": statistics.median(ms["single"]),
-           "dp_median_ms": statistics.median(ms["dp"]),
-           "collective_ms": coll, "k1_launches": launches,
-           "equality": eq}
-    log(f"{label} in turns (single, DP, DP, single) x {DP_TURNS}: single "
-        f"{[round(t, 3) for t in ms['single']]} ms, median "
-        f"{out['single_median_ms']:.3f}; DP "
-        f"{[round(t, 3) for t in ms['dp']]} ms, median "
-        f"{out['dp_median_ms']:.3f}; collectives (ms per call) "
-        + ", ".join(f"{k} {[round(v, 4) for v in vs]}"
-                    for k, vs in coll.items())
-        + f" (in {DP_TRACED} traced DP frames after the turns)"
-        + f"; K1 {counter} launches in the {n_dp} DP frames {launches} "
-        f"[{CARD}]")
-    check(launches >= n_dp, f"{label}: K1 launched {launches} times in "
-          f"{n_dp} DP frames")
-    check(coll.get("all_reduce") and coll.get("all_gather"),
+    ref = single(d)
+    out, n = traced(dev, lambda: data_parallel(d))
+    eq = same_frame(label, ref, out, lr)
+    launches = n[counter]
+    spans = sorted(k[5:] for k in n if k.startswith("span dp."))
+    log(f"{label}: K1 {counter} {launches} in the DP frame, collectives "
+        f"{spans}")
+    check(launches >= 1, f"{label}: K1 did not launch in the DP frame")
+    check("dp.all_reduce" in spans and "dp.all_gather" in spans,
           f"{label}: no collective ran")
-    DP_LOG[label] = out
-    return out
+    DP_LOG[label] = {"equality": eq, "k1_launches": launches,
+                     "collectives": spans}
+    return launches
 
 
 def dp_progressive(dev, scene, cfg, state, env_rgb, pack, probes) -> int:
     """Config 5's production frame at 1920x1080 through
     ``dp_train_banded_frame`` at world size 1 with NCCL (phase 16a: the
     packed DP render, K1 bf16) beside ``train_only_step`` -> ``bake`` ->
-    ``render_banded`` on the same draws, in turns; then ``probe_dp_caps``
-    at world size 1 over the same pack against phase 8c's single-device
-    probes (phase 16c). Returns the DP frames' K1 bf16 launches."""
+    ``render_banded`` on the same draws; then ``probe_dp_caps`` at world
+    size 1 over the same pack against phase 8c's single-device probes
+    (phase 16c). Returns the DP frame's K1 bf16 launches."""
     from neuralradiancecaching_tpu_torch.models import nrc
     from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
     from neuralradiancecaching_tpu_torch.parallel import make_mesh
@@ -2095,46 +1656,40 @@ def dp_progressive(dev, scene, cfg, state, env_rgb, pack, probes) -> int:
             uniforms=d[1])
         return st, img, mse
 
-    res = dp_in_turns(f"config 5 dp_train_banded_frame {P_WIDTH}x"
-                      f"{P_HEIGHT}", draw, single, data_parallel,
-                      "LAUNCHES_BF16", cfg.mrhe.learning_rate)
+    launches = dp_same_frame(dev, f"config 5 dp_train_banded_frame "
+                             f"{P_WIDTH}x{P_HEIGHT}", draw, single,
+                             data_parallel, "k1_bf16_launches",
+                             cfg.mrhe.learning_rate)
 
     # -- 16c. the per-shard cap probe at world size 1 -----------------------
-    sync()
-    t0 = time.perf_counter()
     cfg_t, rep = dp.probe_dp_caps(scene, cfg, 1, band_rows=BAND_ROWS,
                                   pack=pack)
-    sync()
-    probe = {"seconds": time.perf_counter() - t0,
-             "query_frac": rep.query_frac.tolist(),
+    probe = {"query_frac": rep.query_frac.tolist(),
              "event_mean": rep.event_mean.tolist(),
              "live_frac": rep.live_frac.tolist(),
              "query_cap": rep.query_cap, "shade_cap": rep.shade_cap,
-             "phase_8c": {k: getattr(probes, k) for k in (
-                 "qfrac", "live_frac", "ev_mean", "ev0_mean",
-                 "shade_cap")}}
+             "phase_8c": probes}
     log(f"probe_dp_caps at world size 1 over the pack: {json.dumps(probe)}")
     # one shard is the frame: the exact live fraction is phase 8c's, the
     # sampled query and event means match its own (other draws) within
     # their spread, and the DP shade cap also covers slot 0
-    check(abs(rep.live_frac[0] - probes.live_frac) <= 1e-6,
+    qfrac, ev_mean = probes["query_fraction"], probes["event_mean"]
+    check(abs(rep.live_frac[0] - probes["live_fraction"]) <= 1e-6,
           "probe_dp_caps' live fraction differs from the frame's")
-    check(abs(rep.query_frac[0] - probes.qfrac)
-          <= 0.05 * probes.qfrac + 0.005
-          and abs(rep.event_mean[0] - probes.ev_mean)
-          <= 0.05 * probes.ev_mean + 0.005,
+    check(abs(rep.query_frac[0] - qfrac) <= 0.05 * qfrac + 0.005
+          and abs(rep.event_mean[0] - ev_mean) <= 0.05 * ev_mean + 0.005,
           "probe_dp_caps' fractions stray from phase 8c's probes")
-    check(cfg_t.render.shade_cap_fraction >= probes.shade_cap,
+    check(cfg_t.render.shade_cap_fraction >= probes["shade_cap_fraction"],
           "probe_dp_caps' shade cap is below the single-device one")
     DP_LOG["probe_dp_caps 1080p"] = probe
-    return res["k1_launches"]
+    return launches
 
 
 def dp_preset(dev, scene, state, c4) -> int:
     """Config 4 as it ships at 800x800 through ``dp_frame_step`` at world
     size 1 with NCCL (phase 16b: the reference sampler's train batch and
-    the cached render, K1 f32) beside ``frame_step`` on the same draws, in
-    turns. Returns the DP frames' K1 f32 launches."""
+    the cached render, K1 f32) beside ``frame_step`` on the same draws.
+    Returns the DP frame's K1 f32 launches."""
     from neuralradiancecaching_tpu_torch.parallel import data_parallel as dp
     from neuralradiancecaching_tpu_torch.parallel import make_mesh
     from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
@@ -2157,10 +1712,9 @@ def dp_preset(dev, scene, state, c4) -> int:
                                 jitter=d[0].jitter, train_uniforms=[d[0]],
                                 uniforms=[d[1]])
 
-    res = dp_in_turns(f"config 4 dp_frame_step {PRESET_SIDE}x{PRESET_SIDE}",
-                      draw, single, data_parallel, "LAUNCHES",
-                      c4.mrhe.learning_rate)
-    return res["k1_launches"]
+    return dp_same_frame(dev, f"config 4 dp_frame_step {PRESET_SIDE}x"
+                         f"{PRESET_SIDE}", draw, single, data_parallel,
+                         "k1_f32_launches", c4.mrhe.learning_rate)
 
 
 def dp_two_ranks(dev) -> None:
@@ -2379,39 +1933,6 @@ def dp_cli_runs() -> dict:
     return out
 
 
-def bench_run() -> None:
-    """The port's bench as a user runs it (phase 18): ``bench_torch.py`` in
-    its own process at BENCH_CUT. It must exit 0 with one JSON line last,
-    every rate of BENCH_RATES finite and positive and K1's bf16 mode
-    launched in its headline loop; the line is logged."""
-    sync()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(REPO / "bench_torch.py")],
-                          cwd=REPO, env=dict(os.environ, **BENCH_CUT),
-                          capture_output=True, text=True,
-                          timeout=BENCH_TIMEOUT)
-    wall = time.perf_counter() - t0
-    for line in proc.stderr.splitlines():
-        log(f"  bench: {line}")
-    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}: "
-          f"{proc.stderr[-3000:]}")
-    lines = proc.stdout.strip().splitlines()
-    check(bool(lines) and lines[-1].startswith("{"),
-          "bench_torch.py printed no result line")
-    res = json.loads(lines[-1])
-    for key in BENCH_RATES:
-        v = res.get(key)
-        check(isinstance(v, (int, float)) and np.isfinite(v) and v > 0,
-              f"bench_torch.py {key} = {v}")
-    check(res.get("k1_bf16_launches", 0) > 0, "bench_torch.py's headline "
-          "loop launched no K1 bf16")
-    check(res.get("fused_inference") is True, "bench_torch.py ran without "
-          "the fused query MLP")
-    log(f"bench_torch.py at {res['width']}x{res['height']} ({wall:.1f} s "
-        f"process wall) [{CARD}]: {json.dumps(res)}")
-
-
 def to_rgbe(rgb: np.ndarray) -> np.ndarray:
     """(H, W, 3) float32 -> (H, W, 4) uint8 RGBE (Radiance's float2rgbe:
     mantissas scaled to the largest channel's power of two)."""
@@ -2543,16 +2064,14 @@ def pixel_agreement(got: np.ndarray, ref: np.ndarray):
 
 
 def reference_exact_frames(dev, dens, env) -> int:
-    """``reference_exact()`` as it ships at 800x800 (phase 17a): 2 frame_
-    steps after a warm-up, each timed on the host clock to a synchronize,
-    their train and render halves and peak memory, one profiled frame, 32
-    train_only_steps (their mse logged, not gated: the reference's
+    """``reference_exact()`` as it ships at 800x800 (phase 17a): 2
+    frame_steps under the tracer (no K1, the quadrature kernel launched),
+    32 train_only_steps (their mse logged, not gated: the reference's
     momentum SGD learns more slowly than Adam), then one frame with
     ``fused_inference`` on the same state and draws as one more frame as it
     ships: K1 f32 launches once there and its image stays within the render
     bound of the plain MLP's. Returns K1's launches in that frame."""
     from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul, volume
     from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
                                                         targets)
     from neuralradiancecaching_tpu_torch.scene import scene as scn
@@ -2560,71 +2079,50 @@ def reference_exact_frames(dev, dens, env) -> int:
     check(cfg.path.sampler == "reference" and all(
         dataclasses.astuple(cfg.quirks)) and not cfg.mlp.fused_inference,
         "reference_exact no longer ships as this phase expects")
-    torch.cuda.reset_peak_memory_stats()
-    timings: dict[str, float] = {}
-    t0 = time.perf_counter()
-    scene = scn.make_scene(cfg, dens, env, timings=timings, device=dev)
-    sync()
+    scene = scn.make_scene(cfg, dens, env, device=dev)
     levels = scene.density_grid * 255.0
     check(float((levels - torch.round(levels)).abs().max()) < 1e-4,
           "the reference_exact scene is not quantized to 8 bits")
-    log(f"reference_exact scene bake {time.perf_counter() - t0:.3f} s (8-bit "
-        f"density, corner table, no field); peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
     check(state.mlp_second is None and state.opt_step is None,
           "reference_exact's state carries Adam fields")
     gen = torch.Generator(device=dev).manual_seed(17)
-    state, _ = frame.frame_step(state, scene, gen, cfg)  # warm-up
-    sync()
-    reset_counts()
-    ms, halves, mses, means = [], [], [], []
-    for _ in range(2):
-        h: dict[str, float] = {}
-        t0 = time.perf_counter()
-        state, out = frame.frame_step(state, scene, gen, cfg, timings=h)
-        sync()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        halves.append(h)
-        mses.append(float(out.mse))
-        means.append(float(out.image.mean()))
-        check(tuple(out.image.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
-              and bool(torch.isfinite(out.image).all())
-              and np.isfinite(mses[-1]), "reference_exact frame not finite")
-    peak = torch.cuda.max_memory_allocated()
-    check(fused_mlp.LAUNCHES == 0, "reference_exact as it ships launched K1")
-    k3 = volume.LAUNCHES / len(ms)
-    K3_LAUNCHES["reference_exact frame"] = k3
+
+    def frames():
+        nonlocal state
+        outs = []
+        for _ in range(2):
+            state, out = frame.frame_step(state, scene, gen, cfg)
+            outs.append((float(out.mse), out.image))
+        return outs
+
+    outs, n = traced(dev, frames)
+    mses = [m for m, _ in outs]
+    means = [float(img.mean()) for _, img in outs]
+    check(all(tuple(img.shape) == (PRESET_SIDE, PRESET_SIDE, 3)
+              and bool(torch.isfinite(img).all()) for _, img in outs)
+          and all(np.isfinite(mses)), "reference_exact frame not finite")
+    del outs
+    check(n["span k1"] == 0, "reference_exact as it ships launched K1")
+    k3 = n["k3_launches"] / len(mses)
+    K3_BY_PATH["reference_exact frame"] = k3
     check(k3 > 0, "reference_exact's frames did not launch the quadrature "
           "kernel")
-    train = [x["train"] * 1e3 for x in halves]
-    render = [x["render"] * 1e3 for x in halves]
-    log(f"reference_exact frame_step {PRESET_SIDE}x{PRESET_SIDE} ({CARD}): "
-        f"ms {[round(t, 3) for t in ms]}; train half "
-        f"{[round(t, 3) for t in train]}, "
-        f"render half {[round(t, 3) for t in render]} ms "
-        f"({PRESET_SIDE ** 2 / statistics.median(render) / 1e3:.3f} "
-        f"Mrays/s); mse {[round(m, 6) for m in mses]}; image means "
-        f"{[round(m, 5) for m in means]}; K1 launches {fused_mlp.LAUNCHES}, "
-        f"K2 {matmul.LAUNCHES}, quadrature kernel {k3:g} a frame; peak memory "
-        f"{peak / 2**30:.3f} GiB")
-    del out
-    profile_call("reference_exact frame_step", lambda: frame.frame_step(
-        state, scene, gen, cfg))
+    log(f"reference_exact frame_step {PRESET_SIDE}x{PRESET_SIDE}: mse "
+        f"{[round(m, 6) for m in mses]}; image means "
+        f"{[round(m, 5) for m in means]}; K1 launches "
+        f"{n['k1_f32_launches'] + n['k1_bf16_launches']}, K2 "
+        f"{n['k2_launches']}, quadrature kernel {k3:g} a frame")
 
     steps = []
-    t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         state, mse = frame.train_only_step(state, scene, gen, cfg)
         steps.append(mse)
-    sync()
-    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     steps = [float(m) for m in steps]
     check(bool(np.isfinite(steps).all()), "reference_exact mse not finite")
-    log(f"reference_exact: {TRAIN_STEPS} train_only_steps "
-        f"{step_ms:.3f} ms/step, mse {[round(m, 6) for m in steps]} "
-        f"(logged, not gated), "
+    log(f"reference_exact: {TRAIN_STEPS} train_only_steps, mse "
+        f"{[round(m, 6) for m in steps]} (logged, not gated), "
         f"mean of the first 8 {np.mean(steps[:8]):.6f}, of the last 8 "
         f"{np.mean(steps[-8:]):.6f}")
 
@@ -2632,19 +2130,14 @@ def reference_exact_frames(dev, dens, env) -> int:
     u_t = targets.draw_train_uniforms(cfg, gen, dev)
     u_r = pathtrace.draw_path_uniforms(cfg, PRESET_SIDE ** 2, True, gen,
                                        device=dev)
-    sync()
-    reset_counts()
-    _, plain = frame.frame_step(state, scene, None, cfg, train_uniforms=u_t,
-                                uniforms=u_r)
-    sync()
-    check(fused_mlp.LAUNCHES == 0, "the plain-MLP frame launched K1")
+    (_, plain), n = traced(dev, lambda: frame.frame_step(
+        state, scene, None, cfg, train_uniforms=u_t, uniforms=u_r))
+    check(n["span k1"] == 0, "the plain-MLP frame launched K1")
     fused_cfg = exact_config(fused=True)
-    reset_counts()
-    _, fused = frame.frame_step(state, scene, None, fused_cfg,
-                                train_uniforms=u_t, uniforms=u_r)
-    sync()
-    launches = fused_mlp.LAUNCHES
-    check(launches == 1 and fused_mlp.LAUNCHES_BF16 == 0,
+    (_, fused), n = traced(dev, lambda: frame.frame_step(
+        state, scene, None, fused_cfg, train_uniforms=u_t, uniforms=u_r))
+    launches = n["k1_f32_launches"]
+    check(launches == 1 and n["k1_bf16_launches"] == 0,
           f"K1 f32 launched {launches} times in the fused reference_exact "
           f"frame")
     frac, rel, diff = pixel_agreement(fused.image.cpu().numpy(),
@@ -2791,10 +2284,19 @@ def slice_checks(dev, dens) -> None:
     check(raised, "nan_check let a NaN through on the card")
 
 
-def device_kernels(prof, notes=()) -> collections.Counter:
-    """Kernels on the card in a ``torch.profiler`` trace, by name: device
-    events that are no copy, memset or annotation (``notes``: the span
-    names, which the device's annotations carry)."""
+def device_kernels(fn, notes=()) -> collections.Counter:
+    """The kernels ``fn()`` runs on the card, by name, from one
+    ``torch.profiler`` window that idles PROFILE_PAD seconds before and
+    after ``fn`` (from a synchronize to a synchronize): device events that
+    are no copy, memset or annotation (``notes``: the span names, which
+    the device's annotations carry)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD)
+        fn()
+        sync()
+        time.sleep(PROFILE_PAD)
     n = collections.Counter()
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -2828,9 +2330,6 @@ def tracer_phase(dev, dens, env) -> dict:
     nearest untraced repeat than TRACER_NOISE_MARGIN times the largest gap
     between two of TRACER_UNTRACED untraced repeats (bit for bit where
     those agree). Returns what it measured."""
-    from torch.profiler import ProfilerActivity, profile
-
-    import bench_torch
     from neuralradiancecaching_tpu_torch.models import nrc
     from neuralradiancecaching_tpu_torch.render import frame, tiled
     from neuralradiancecaching_tpu_torch.scene import scene as scn
@@ -2869,21 +2368,16 @@ def tracer_phase(dev, dens, env) -> dict:
         syncs = sum(r.counts.get("syncs", 0) for r in records
                     if r.name != "frame")
         notes = {r.name for r in records}
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(3)
-            sync()
-        k_off = device_kernels(prof)
+        k_off = device_kernels(lambda: run(3))
         real_cap, profiling.cap = profiling.cap, lambda *a, **k: None
         try:
             with profiling.tracing(dev) as rec:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                def on_frame():
                     with rec.frame(3):
                         run(3)
-                    sync()
+                k_on = device_kernels(on_frame, notes)
         finally:
             profiling.cap = real_cap
-        k_on = device_kernels(prof, notes)
         if k_on != k_off:
             log(f"  {label}: kernels off against on: "
                 f"{dict((k_off - k_on) + (k_on - k_off))}")
@@ -2916,7 +2410,7 @@ def tracer_phase(dev, dens, env) -> dict:
     gen = torch.Generator(device=dev).manual_seed(100)
     for _ in range(P_WARMUP_STEPS):
         state, _ = frame.train_only_step(state, scene, gen, cfg)
-    cfg, _ = bench_torch.probe_caps(cfg, scene, dev)
+    cfg, _ = probe_caps(cfg, scene, dev)
     env_rgb = tiled.frame_env_color(scene, cfg)
     pack = tiled.frame_live_pack(scene, cfg, BAND_ROWS)
 
@@ -2981,22 +2475,21 @@ def transmittance_phase(dev, dens) -> dict:
     plain path's, the bound (each byte read or written once: the table,
     the segments' ends, the samples written and summed, and the result,
     over HBM_BYTES_S) and the time every sample's 32-byte row would take
-    from device memory (most come from L1 or L2). Its own launches go
-    into K3_LAUNCHES apart from the main path's."""
+    from device memory (most come from L1 or L2). The checked call runs
+    under the tracer: two launches; the timed calls run untraced."""
     from neuralradiancecaching_tpu_torch.ops import volume
     vol = exact_config().volume
-    volume.LAUNCHES = 0
     table = volume.build_corner_table(volume.quantize_8bit(
         torch.as_tensor(dens, device=dev)))
     out = {}
     for rows, steps in TRANSMITTANCE_SHAPES:
         start, end = camera_segments(rows, steps, vol, dev)
-        launches = volume.LAUNCHES
-        got = volume.transmittance(table, start, end, steps, vol)
+        got, n = traced(dev, lambda: volume.transmittance(table, start, end,
+                                                          steps, vol))
         want = volume.transmittance_plain(table, start, end, steps, vol)
         sync()
         equal = torch.equal(got, want)
-        check(volume.LAUNCHES == launches + 2,
+        check(n["k3_launches"] == 2,
               "transmittance did not launch its two kernels on the card")
         check(equal, f"the transmittance kernel differs from the plain path "
               f"at {rows} x {steps}")
@@ -3028,7 +2521,6 @@ def transmittance_phase(dev, dens) -> dict:
             f"{float(got.mean()):.4f}; {CARD}")
         del start, end, got, want
     torch.cuda.empty_cache()
-    K3_LAUNCHES["phase 21"] = volume.LAUNCHES
     return out
 
 
@@ -3046,7 +2538,7 @@ def main() -> int:
     from neuralradiancecaching_tpu_torch.io import assets
     from neuralradiancecaching_tpu_torch import kernels
     from neuralradiancecaching_tpu_torch.models import nrc
-    from neuralradiancecaching_tpu_torch.ops import fused_mlp, matmul
+    from neuralradiancecaching_tpu_torch.ops import matmul
     from neuralradiancecaching_tpu_torch.render import (frame, pathtrace,
                                                         targets)
     from neuralradiancecaching_tpu_torch.scene import camera, scene as scn
@@ -3148,66 +2640,39 @@ def main() -> int:
 
     phase("21: quadrature kernel")
     transmittance_times = transmittance_phase(dev, dens)
-    torch.cuda.reset_peak_memory_stats()
-    timings: dict[str, float] = {}
-    t0 = time.perf_counter()
-    scene = scn.make_scene(cfg, dens, env, timings=timings)
-    sync()
-    bake_s = time.perf_counter() - t0
-    log(f"scene bake {bake_s:.3f} s on {scene.density.device}: " + ", ".join(
-        f"{k} {v:.3f} s" for k, v in timings.items()))
+    scene = scn.make_scene(cfg, dens, env)
+    log(f"scene on {scene.density.device}:")
     for field in ("env_t_field", "env_s_field", "coll_field"):
         t = getattr(scene, field)
         check(t.device.type == "cuda", f"{field} on {t.device}")
         check(bool(torch.isfinite(t).all()), f"{field} not finite")
         log(f"  {field} {tuple(t.shape)} mean {float(t.mean()):.5f}")
-    log(f"peak memory during the bake: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # -- 5. cache state ----------------------------------------------------
     state = nrc.init_state(torch.Generator(device=dev).manual_seed(0), cfg)
     check(state.hash_table.device.type == "cuda", "state not on the card")
-    sync()
 
-    # -- 6. frames through the serving entry point --------------------------
+    # -- 6. frames through the serving entry point, under the tracer -------
     cams = [camera.make_camera(cfg.camera, dev,
                                *camera.orbit_position(i, ORBIT_POSES))
-            for i in range(N_FRAMES + 1)]
+            for i in range(N_FRAMES)]
     walk_gen = torch.Generator(device=dev).manual_seed(1)
-
-    def render(i):
-        return frame.render_only_step(
-            state, dataclasses.replace(scene, camera=cams[i]), walk_gen, cfg)
-
-    render(0)  # warm-up
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    fused_mlp.LAUNCHES = matmul.LAUNCHES = 0
-    frame_ms, means = [], []
-    for i in range(1, N_FRAMES + 1):
-        sync()
-        t0 = time.perf_counter()
-        img = render(i)
-        sync()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    imgs, n = traced(dev, lambda: [frame.render_only_step(
+        state, dataclasses.replace(scene, camera=cam), walk_gen, cfg)
+        for cam in cams])
+    means = []
+    for i, img in enumerate(imgs):
         check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image {img.shape}")
         check(bool(torch.isfinite(img).all()), f"frame {i} not finite")
         means.append(float(img.mean()))
-    launches = fused_mlp.LAUNCHES
-    peak_frames = torch.cuda.max_memory_allocated()
+    del imgs
+    launches = n["k1_f32_launches"]
     check(launches >= N_FRAMES, f"K1 launched {launches} times in "
           f"{N_FRAMES} frames")
     check(all(1e-3 < m < 1e3 for m in means), f"frame means {means}")
-    med = statistics.median(frame_ms)
-    log(f"render_only_step {WIDTH}x{HEIGHT}: ms "
-        f"{[round(t, 3) for t in frame_ms]}, median {med:.3f} ms, "
-        f"{WIDTH * HEIGHT / med / 1e3:.3f} Mrays/s, means "
+    log(f"render_only_step {WIDTH}x{HEIGHT}: means "
         f"{[round(m, 5) for m in means]}, K1 launches {launches}, K2 "
-        f"launches {matmul.LAUNCHES}, peak memory "
-        f"{peak_frames / 2**30:.3f} GiB")
-
-    profile_frame(state, dataclasses.replace(scene, camera=cams[1]), cfg,
-                  walk_gen)
+        f"launches {n['k2_launches']}")
 
     # -- 6b. K1 vs plain on the first frame's real feature rows -------------
     ro, rd = camera.pixel_rays(cams[0], WIDTH, HEIGHT)
@@ -3224,72 +2689,51 @@ def main() -> int:
         log(f"K1 vs plain on real rows ({label}): max abs {abs_e:.3e} "
             f"max rel {rel_e:.3e}; vs float64: kernel {f64_e:.3e}, plain "
             f"{plain_f64:.3e}")
-    sync()
+    del res, feats
 
     # -- 6c. online frames through frame_step (train, then render) ----------
     train_gen = torch.Generator(device=dev).manual_seed(5)
 
-    def online(i, st, halves=None):
-        return frame.frame_step(st, dataclasses.replace(scene, camera=cams[i]),
-                                train_gen, cfg, timings=halves)
+    def online():
+        nonlocal state
+        outs = []
+        for cam in cams:
+            state, out = frame.frame_step(
+                state, dataclasses.replace(scene, camera=cam), train_gen, cfg)
+            outs.append((float(out.mse), out.image))
+        return outs
 
-    state, _ = online(0, state)  # warm-up
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    fused_mlp.LAUNCHES = matmul.LAUNCHES = 0
-    step_ms, train_ms, render_ms, mses = [], [], [], []
-    for i in range(1, N_FRAMES + 1):
-        halves: dict[str, float] = {}
-        sync()
-        t0 = time.perf_counter()
-        state, out = online(i, state, halves)
-        sync()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        train_ms.append(halves["train"] * 1e3)
-        render_ms.append(halves["render"] * 1e3)
-        mses.append(float(out.mse))
-        check(tuple(out.image.shape) == (HEIGHT, WIDTH, 3),
-              f"image {out.image.shape}")
-        check(bool(torch.isfinite(out.image).all()),
-              f"online frame {i} not finite")
-        check(np.isfinite(mses[-1]), f"online frame {i}: mse {mses[-1]}")
-    launches_online = fused_mlp.LAUNCHES
-    k2_launches = matmul.LAUNCHES
-    peak_online = torch.cuda.max_memory_allocated()
+    outs, n = traced(dev, online)
+    mses = [m for m, _ in outs]
+    for i, (mse, img) in enumerate(outs):
+        check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image {img.shape}")
+        check(bool(torch.isfinite(img).all()), f"online frame {i} not finite")
+        check(np.isfinite(mse), f"online frame {i}: mse {mse}")
+    del outs
+    launches_online = n["k1_f32_launches"]
+    k2_launches = n["k2_launches"]
     check(launches_online >= N_FRAMES, f"K1 launched {launches_online} times "
           f"in {N_FRAMES} online frames")
-    check(int(state.opt_step) == N_FRAMES + 1,
+    check(int(state.opt_step) == N_FRAMES,
           f"opt_step {int(state.opt_step)}")
     log(f"frame_step {WIDTH}x{HEIGHT} (train {cfg.train.train_width}x"
-        f"{cfg.train.train_height} x {cfg.train.vertex_oversample}): ms "
-        f"{[round(t, 3) for t in step_ms]}, median "
-        f"{statistics.median(step_ms):.3f} ms; train half "
-        f"{[round(t, 3) for t in train_ms]}, median "
-        f"{statistics.median(train_ms):.3f} ms; render half "
-        f"{[round(t, 3) for t in render_ms]}, median "
-        f"{statistics.median(render_ms):.3f} ms; mse "
+        f"{cfg.train.train_height} x {cfg.train.vertex_oversample}): mse "
         f"{[round(m, 5) for m in mses]}; K1 launches {launches_online}, K2 "
-        f"launches {k2_launches}; peak memory {peak_online / 2**30:.3f} GiB")
+        f"launches {k2_launches}")
 
     # -- 6d. the cache learns: TRAIN_STEPS train_only_steps -----------------
     train_scene = dataclasses.replace(scene, camera=cams[1])
     steps = []
-    sync()
-    t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
         state, mse = frame.train_only_step(state, train_scene, train_gen, cfg)
         steps.append(mse)
-    sync()
-    per_step = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
     steps = [float(m) for m in steps]
     first, last = np.mean(steps[:8]), np.mean(steps[-8:])
-    log(f"{TRAIN_STEPS} train_only_steps: {per_step:.3f} ms/step, mse "
+    log(f"{TRAIN_STEPS} train_only_steps: mse "
         f"{[round(m, 4) for m in steps]}, mean of the first 8 {first:.5f}, "
         f"of the last 8 {last:.5f}")
     check(bool(np.isfinite(steps).all()), "train mse not finite")
     check(last < first, f"the mse did not fall: {first} -> {last}")
-
-    profile_frame_step(state, train_scene, cfg, train_gen)
 
     phase("7: card vs CPU")
     # -- 7. the card vs the CPU port at a small size ------------------------
@@ -3352,7 +2796,7 @@ def main() -> int:
 
     phase("8: config 5")
     # -- 8. config 5's progressive 1080p frame ------------------------------
-    del scene, train_scene, state, res, feats, x_big, img, out
+    del scene, train_scene, state, x_big
     torch.cuda.empty_cache()
     k1_bf16, legs = progressive_frame(dev, dens, env, params_he)
 
@@ -3362,10 +2806,10 @@ def main() -> int:
     launches_preset, err, err_f64, launches_dense, launches_dp = \
         preset_frames(dev, dens, env, params_he)
     k1_err, k1_err_f64 = max(k1_err, err), max(k1_err_f64, err_f64)
-    log(f"K1 f32 launches: {launches_online} on the 4 collision online "
-        f"frames, {launches_preset} on the 4 config-4-preset frames, "
-        f"{launches_dense} on the {DENSE_FRAMES} dense/hash config-4 frames, "
-        f"{launches_dp} on the {2 * DP_TURNS} data-parallel config-4 frames")
+    log(f"K1 f32 launches: {launches_online} on the {N_FRAMES} collision "
+        f"online frames, {launches_preset} on the {N_FRAMES} config-4-preset "
+        f"frames, {launches_dense} on the {DENSE_FRAMES} dense/hash config-4 "
+        f"frames, {launches_dp} on the data-parallel config-4 frame")
 
     phase("11: presets card vs CPU")
     # -- 11. the card vs the CPU port: the oracle and config 4's frame, and
@@ -3414,10 +2858,6 @@ def main() -> int:
     from neuralradiancecaching_tpu_torch.parallel import close_mesh
     close_mesh()
 
-    phase("18: bench")
-    # -- 18. the port's bench in its own process at a cut -----------------
-    bench_run()
-
     phase("19: host library")
     # -- 19. the host library: its build and the native HDR decode ---------
     host = host_library()
@@ -3452,8 +2892,8 @@ def main() -> int:
         {"name": "transmittance", "route": "cuda",
          "source": "neuralradiancecaching_tpu_torch/csrc/transmittance.cu",
          "replaces": "none (XLA array code in the JAX package)",
-         "launches": K3_LAUNCHES.get("reference_exact frame"),
-         "launches_by_path": K3_LAUNCHES, "shapes": transmittance_times}]}
+         "launches": K3_BY_PATH.get("reference_exact frame"),
+         "launches_by_path": K3_BY_PATH, "shapes": transmittance_times}]}
     log(json.dumps(record))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -41,11 +41,6 @@ from neuralradiancecaching_tpu_torch import kernels
 from neuralradiancecaching_tpu_torch.ops import mlp as mlp_ops
 from neuralradiancecaching_tpu_torch.utils import profiling
 
-# launches of the CUDA kernel in this process, one per kernel launch: in
-# the float32 mode and in the bf16 mode
-LAUNCHES = 0
-LAUNCHES_BF16 = 0
-
 _D = 64  # the kernel's in_features == hidden
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 
@@ -230,8 +225,8 @@ def launch(packed: PackedMLP, x: torch.Tensor, cfg: MLPConfig
     """Launch K1 on a CUDA tensor with weights packed by
     :func:`pack_params` in the rows' mode: (B, 64) float32 or bf16 rows ->
     (B, out_features) float32. Traced as the span ``k1`` with the count
-    ``rows``."""
-    global LAUNCHES, LAUNCHES_BF16
+    ``rows``, and ``k1_bf16_launches`` or ``k1_f32_launches`` once the
+    launch succeeds."""
     profiling.count("rows", x.shape[0])
     if x.device.type != "cuda":
         raise ValueError(f"launch needs a CUDA tensor, got {x.device}")
@@ -257,10 +252,7 @@ def launch(packed: PackedMLP, x: torch.Tensor, cfg: MLPConfig
         int(cfg.output_relu), int(in_bf16), x.device.index, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
-    if in_bf16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
+    profiling.count("k1_bf16_launches" if in_bf16 else "k1_f32_launches", 1)
     return out
 
 

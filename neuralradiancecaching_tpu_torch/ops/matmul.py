@@ -23,9 +23,7 @@ import ctypes
 import torch
 
 from neuralradiancecaching_tpu_torch import kernels
-
-# launches of the CUDA kernel in this process (one per kernel launch)
-LAUNCHES = 0
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,11 +77,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+@profiling.spanned("k2")
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch K2 on CUDA tensors: (M, K) @ (K, N) float32 -> (M, N). The
     operands' TF32 pieces go to scratch allocated here: (2, M, Kp) for A,
-    (2, N, Kp) for B transposed, Kp = K rounded up to 4."""
-    global LAUNCHES
+    (2, N, Kp) for B transposed, Kp = K rounded up to 4. Traced as the
+    span ``k2``, each launch its count ``k2_launches``."""
     if a.device.type != "cuda":
         raise ValueError(f"matmul_kernel needs CUDA tensors, got {a.device}")
     _check_supported(a, b)
@@ -102,7 +101,7 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          a.device.index, stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    profiling.count("k2_launches", 1)
     return out
 
 

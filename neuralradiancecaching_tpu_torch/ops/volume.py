@@ -38,9 +38,6 @@ from neuralradiancecaching_tpu_torch.config import VolumeConfig
 from neuralradiancecaching_tpu_torch.ops import consts, scan
 from neuralradiancecaching_tpu_torch.utils import profiling
 
-# launches of the quadrature's kernels (csrc/transmittance.cu) in this process
-LAUNCHES = 0
-
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
     """``values`` as a constant of ``like``'s dtype on its device."""
@@ -212,7 +209,6 @@ def quadrature_densities(field: torch.Tensor, start: torch.Tensor,
     (the plain path's ``dens``). ``field`` is the float32 corner table of
     ``cfg.grid_shape`` (contiguous, 16-byte aligned). Raises ``ValueError``
     for anything else; the inputs are checked before their device."""
-    global LAUNCHES
     for name, t in (("field", field), ("start", start), ("seg", seg)):
         if t.dtype != torch.float32:
             raise ValueError(f"transmittance kernel takes float32 tensors, "
@@ -251,7 +247,7 @@ def quadrature_densities(field: torch.Tensor, start: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"transmittance kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    profiling.count("k3_launches", 1)
     profiling.count("density_samples_kernel", rows * steps)
     return dens
 
@@ -264,7 +260,9 @@ def transmittance_kernel(field: torch.Tensor, start: torch.Tensor,
     :func:`quadrature_densities` (which adds its rows x steps to the count
     ``density_samples_kernel``), the segment, its length, the step size and
     the step sum in the plain path's torch operations, the rest in the
-    finish kernel. start/end: float32 (..., 3) of any layout -> (...,)."""
+    finish kernel. Each of the two launches adds 1 to the count
+    ``k3_launches`` (none without rows). start/end: float32 (..., 3) of
+    any layout -> (...,)."""
     if end.device != start.device or end.shape != start.shape:
         raise ValueError(f"transmittance kernel takes start and end of one "
                          f"shape on one device, got {tuple(start.shape)} on "
@@ -282,7 +280,6 @@ def _quadrature_finish(total: torch.Tensor, step_size: torch.Tensor,
     as one launch of ``csrc/transmittance.cu``'s finish kernel, bit for
     bit; (...,) float32 CUDA tensors of one shape, as
     :func:`transmittance_kernel` makes them."""
-    global LAUNCHES
     out = torch.empty(length.shape, dtype=torch.float32, device=length.device)
     rows = length.numel()
     if rows == 0:
@@ -295,7 +292,7 @@ def _quadrature_finish(total: torch.Tensor, step_size: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"transmittance finish kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES += 1
+    profiling.count("k3_launches", 1)
     return out
 
 

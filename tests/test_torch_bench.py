@@ -1,8 +1,9 @@
-"""The port's bench (``bench_torch.py``) against ``bench.py``'s protocol on
-the CPU: the orbit poses of the moving-camera and quality legs against the
-JAX package's cameras, the cap arithmetic against ``bench.py``'s formulas,
+"""The port's image-quality tool (``bench_torch.py``) against
+``bench.py``'s protocol on the CPU: the orbit poses of the quality legs
+against the JAX package's cameras, the cap arithmetic of the probes it
+takes from ``benchmark/caps.py`` against ``bench.py``'s formulas,
 ``cache_quality``'s binning and error against ``bench.py``'s
-``jax.ops.segment_sum`` form, every leg at a toy size through
+``jax.ops.segment_sum`` form, every quality leg at a toy size through
 ``run_bench``, the twin cache's replay and misses (another config, pose,
 seed, cloud or sky), and the exit without CUDA. Bounds, each with its reason:
 - the orbit cameras: within 1e-6 (+ 1e-6 relative): both build the matrices
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 import bench_torch
+from benchmark import caps
 from neuralradiancecaching_tpu import config as jcfg_mod
 from neuralradiancecaching_tpu.scene import camera as jcam
 from neuralradiancecaching_tpu_torch import config as tcfg_mod
@@ -37,25 +39,24 @@ R = dataclasses.replace
 REPO = Path(__file__).resolve().parents[1]
 STEP = 0.015625
 
-# bench.py's result keys but vs_baseline, and the port's additions
-BENCH_KEYS = sorted(set(json.loads((REPO / "BENCH_r05.json").read_text())
-                        ["parsed"]) - {"vs_baseline"})
-PORT_KEYS = ("device", "power_limit_w", "devices", "cloud_source",
-             "env_source", "fused_inference", "k1_bf16_launches",
-             "peak_memory_gib")
+# bench.py's quality keys (its result from relative_rmse on: the keys
+# before it are the timed legs', which the benchmark's cells measure), the
+# caps the legs ran under and the device fields
+R05 = list(json.loads((REPO / "BENCH_r05.json").read_text())["parsed"])
+QUALITY_KEYS = R05[R05.index("relative_rmse"):]
+PORT_KEYS = ("query_cap", "shade_cap", "live_pack", "event_mean",
+             "entry_live_fraction", "device", "power_limit_w", "devices",
+             "cloud_source", "env_source", "fused_inference", "oracle_mean")
 # bench.py emits null for these (bench.py:965-970, :888); on the CPU the
-# port has no power limit and no device allocator to read
+# port has no power limit to read
 NULL_OK = {"cache_rel_err_binned", "cadence_cache_err"}
-NULL_ON_CPU = {"power_limit_w", "peak_memory_gib"}
-# the toy run: the tests' small config 5 at 32x18 in 6-row bands, the
-# quality legs at 16^2 with 2 spp, cache_quality at 256 points
-TOY_ENV = dict(BENCH_WIDTH=32, BENCH_HEIGHT=18, BENCH_BAND=6, BENCH_FRAMES=2,
-               BENCH_TRAIN_STEPS=1, BENCH_ONLINE_FRAMES=2,
-               BENCH_MOVING_FRAMES=2, BENCH_QUALITY_SIZE=16,
-               BENCH_QUALITY_TRAIN=4, BENCH_QUALITY_SPP=2,
-               BENCH_QUALITY_REF_SPP=2, BENCH_QUALITY_GT_SPP=2,
-               BENCH_QUALITY_GT_SIZE=16, BENCH_QUALITY_TRACK_STEPS=2,
-               BENCH_QUALITY_CADENCE_FRAMES=4)
+NULL_ON_CPU = {"power_limit_w"}
+# the toy run: the tests' small config 5, its probes at 32x18, the quality
+# legs at 16^2 with 2 spp, cache_quality at 256 points
+TOY_ENV = dict(BENCH_QUALITY_SIZE=16, BENCH_QUALITY_TRAIN=4,
+               BENCH_QUALITY_SPP=2, BENCH_QUALITY_REF_SPP=2,
+               BENCH_QUALITY_GT_SPP=2, BENCH_QUALITY_GT_SIZE=16,
+               BENCH_QUALITY_TRACK_STEPS=2, BENCH_QUALITY_CADENCE_FRAMES=4)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -116,7 +117,9 @@ def toy(monkeypatch, tmp_path):
     monkeypatch.setattr(bench_torch, "CACHE_POINTS", 256)
     monkeypatch.setattr(bench_torch, "CACHE_CHUNK", 128)
     monkeypatch.setattr(bench_torch, "CACHE_SAMPLES", 4)
-    monkeypatch.setattr(bench_torch, "TRAIN_TIMING_STEPS", 2)
+    monkeypatch.setattr(bench_torch, "WIDTH", 32)
+    monkeypatch.setattr(bench_torch, "HEIGHT", 18)
+    monkeypatch.setattr(bench_torch, "WARM_TRAIN_STEPS", 1)
     for k in [k for k in os.environ if k.startswith("BENCH_")]:
         monkeypatch.delenv(k)
     for k, v in TOY_ENV.items():
@@ -131,8 +134,8 @@ def toy(monkeypatch, tmp_path):
                          + [(1, 64)])
 def test_orbit_camera_matches_jax(aspect, frame_i, n):
     """bench.py's orbit scenes (``orbit_position(i, n, radius=64)`` +
-    ``make_camera``; the moving leg at the frame's aspect, the quality legs
-    at 1) equal the JAX package's cameras."""
+    ``make_camera``; the quality legs at aspect 1, the frame's aspect as
+    bench.py's moving leg takes it) equal the JAX package's cameras."""
     jc = R(jcfg_mod.progressive_1080p_config().camera, aspect=aspect)
     pos, view_dir = jcam.orbit_position(frame_i, n, radius=64.0)
     ref = jcam.make_camera(jc, position=pos, view_dir=view_dir)
@@ -162,7 +165,7 @@ def test_query_and_pack_caps_match_bench(qfrac):
     :202-203, which the pack always overrides to 1.0 at :266-267)."""
     ref = min(1.0, float(np.ceil((qfrac * 1.05 + 0.005) / 0.015625)
                          * 0.015625))
-    assert bench_torch.pack_cap(qfrac) == ref
+    assert caps.pack_cap(qfrac) == ref
     assert ref >= STEP
 
 
@@ -171,7 +174,7 @@ def test_moving_cap_matches_bench(worst):
     # bench.py:472-474
     ref = min(1.0, float(np.ceil((worst * 1.08 + 0.005) / 0.015625)
                          * 0.015625))
-    assert bench_torch.moving_cap(worst) == ref
+    assert caps.moving_cap(worst) == ref
 
 
 @pytest.mark.parametrize("slot0_dense", [True, False])
@@ -183,8 +186,7 @@ def test_shade_cap_matches_bench(tail, slot0_dense):
     cap_mean = ev_mean - ev0_mean if slot0_dense else ev_mean
     ref = min(k_slots, float(np.ceil((cap_mean * 1.05 + 0.01) / 0.015625)
                              * 0.015625))
-    assert bench_torch.shade_cap(ev_mean, ev0_mean, k_slots,
-                                 slot0_dense) == ref
+    assert caps.shade_cap(ev_mean, ev0_mean, k_slots, slot0_dense) == ref
 
 
 # -- cache_quality's binning --------------------------------------------------
@@ -299,14 +301,13 @@ def test_cache_quality_parts_match_jax(toy):
 # -- the whole bench at a toy size -------------------------------------------
 
 def test_run_bench_toy_has_every_key(toy, tmp_path):
-    """Every leg through ``run_bench`` on the CPU: bench.py's keys (but
-    vs_baseline) and the port's, every number finite, null only where
-    bench.py emits null (or, on the CPU, for the card's power limit and
-    device memory)."""
+    """Every quality leg through ``run_bench`` on the CPU: bench.py's
+    quality keys and the port's, and no other (no timed leg's), every
+    number finite, null only where bench.py emits null (or, on the CPU,
+    for the card's power limit)."""
     res = bench_torch.run_bench("cpu")
-    missing = sorted((set(BENCH_KEYS) | set(PORT_KEYS)) - set(res))
-    assert not missing, missing
-    assert "vs_baseline" not in res
+    assert set(res) == set(QUALITY_KEYS) | set(PORT_KEYS), sorted(
+        set(res) ^ (set(QUALITY_KEYS) | set(PORT_KEYS)))
     for k, v in res.items():
         if v is None:
             assert k in NULL_OK | NULL_ON_CPU, k
@@ -316,8 +317,6 @@ def test_run_bench_toy_has_every_key(toy, tmp_path):
     assert res["query_cap"] == 1.0 and res["live_pack"] >= STEP
     assert res["cloud_source"] == "unknown"
     assert res["env_source"] == "synthesized"
-    assert res["value"] > 0 and res["mrays_s_spp2"] > 0
-    assert res["online_fps_moving"] > 0 and res["online_fps"] > 0
     # the cap A/B is exact: the caps change no draw
     assert res["cap_bias_rmse"] == 0.0
     assert 0 < res["cache_probe_points"] <= 256

@@ -53,6 +53,7 @@ from neuralradiancecaching_tpu_torch.ops import fused_mlp
 from neuralradiancecaching_tpu_torch.ops import mlp as tmlp
 from neuralradiancecaching_tpu_torch.ops import mrhe as tmrhe
 from neuralradiancecaching_tpu_torch.scene import scene as tscene
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 R = dataclasses.replace
 N = 4096
@@ -228,11 +229,12 @@ def test_query_mlp_bf16_matches_jax_on_same_rows(setup):
                jstate, jb, pos, d)
     ref = np.asarray(jax_o0(lambda s, xx: jnrc.query_mlp(s, xx, cfg),
                             jstate, x))
-    before = fused_mlp.LAUNCHES_BF16
-    out = tnrc.query_mlp(tstate, to_bf16_tensor(x), port_cfg(cfg))
+    with profiling.tracing("cpu") as rec, rec.frame(0):
+        out = tnrc.query_mlp(tstate, to_bf16_tensor(x), port_cfg(cfg))
     assert out.dtype == torch.float32 and ref.dtype == np.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
-    assert fused_mlp.LAUNCHES_BF16 == before  # CPU rows: the plain version
+    # CPU rows: the plain version, no k1 span and no launch counted
+    assert [(r.name, r.counts) for r in rec.records()] == [("frame", {})]
 
 
 def test_query_baked_bf16_matches_jax(setup):
@@ -314,10 +316,10 @@ def test_k1_bf16_rows_on_cpu_take_plain_and_kernel_needs_cuda():
     mlp = port_cfg(cfg_mod.MLPConfig())
     params = tmlp.init_params(torch.Generator().manual_seed(1), mlp)
     x = torch.zeros((8, 64), dtype=torch.bfloat16)
-    before = (fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BF16)
-    out = fused_mlp.apply_fused(params, x, mlp)
+    with profiling.tracing("cpu") as rec, rec.frame(0):
+        out = fused_mlp.apply_fused(params, x, mlp)
     assert out.dtype == torch.float32
-    assert (fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BF16) == before
+    assert [(r.name, r.counts) for r in rec.records()] == [("frame", {})]
     fused_mlp._check_supported(x, mlp)  # bf16 rows are the kernel's too
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_mlp.apply_kernel(params, x, mlp)
@@ -336,10 +338,10 @@ def test_k1_bf16_kernel_matches_plain_on_card():
     for n in (1, 5, 63, 65, 127, 129, 511, 513, 4096):
         x = torch.randn((n, 64), generator=g, device="cuda").to(
             torch.bfloat16)
-        before = fused_mlp.LAUNCHES_BF16
-        out = fused_mlp.apply_kernel(params, x, mlp)
-        torch.cuda.synchronize()
-        assert fused_mlp.LAUNCHES_BF16 == before + 1
+        with profiling.tracing("cuda") as rec:
+            out = fused_mlp.apply_kernel(params, x, mlp)
+        assert [(r.name, r.counts) for r in rec.records()] == [
+            ("k1", {"rows": n, "k1_bf16_launches": 1})]
         torch.testing.assert_close(
             out, fused_mlp.apply_plain(params, x, mlp), rtol=1e-4,
             atol=1e-5)

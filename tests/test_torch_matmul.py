@@ -14,6 +14,7 @@ import torch
 
 from neuralradiancecaching_tpu.ops import pallas_matmul
 from neuralradiancecaching_tpu_torch.ops import matmul as tmm
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 RTOL = ATOL = 2e-4
 SHAPES = [(64, 64, 64), (300, 200, 100), (512, 512, 512)]
@@ -41,9 +42,10 @@ def test_plain_matches_pallas_interpret(m, k, n):
     a, b = _operands(m, k, n, m + k + n)
     ref = np.asarray(pallas_matmul.matmul(jnp.asarray(a), jnp.asarray(b),
                                           interpret=True))
-    before = tmm.LAUNCHES
-    out = tmm.matmul(torch.tensor(a), torch.tensor(b))
-    assert tmm.LAUNCHES == before  # CPU tensors take the plain version
+    with profiling.tracing("cpu") as rec, rec.frame(0):
+        out = tmm.matmul(torch.tensor(a), torch.tensor(b))
+    # CPU tensors take the plain version: no launch counted
+    assert [(r.name, r.counts) for r in rec.records()] == [("frame", {})]
     assert out.shape == (m, n) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(tmm.matmul_plain(torch.tensor(a),
@@ -77,7 +79,11 @@ def test_kernel_matches_plain_on_card():
                              (127, 33, 129), (65, 129, 63)]:
         a, b = (torch.tensor(x, device="cuda")
                 for x in _operands(m, k, n, 1))
-        out = tmm.matmul_kernel(a, b)
+        # no enclosing span: K2's own span holds its launch count
+        with profiling.tracing("cuda") as rec:
+            out = tmm.matmul_kernel(a, b)
+        assert [(r.name, r.counts) for r in rec.records()] == [
+            ("k2", {"k2_launches": 1})]
         torch.cuda.synchronize()
         torch.testing.assert_close(out, tmm.matmul_plain(a, b), rtol=RTOL,
                                    atol=ATOL)

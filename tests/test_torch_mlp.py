@@ -21,6 +21,7 @@ from neuralradiancecaching_tpu.ops import pallas_mlp
 from neuralradiancecaching_tpu_torch import config as tcfg_mod
 from neuralradiancecaching_tpu_torch.ops import fused_mlp
 from neuralradiancecaching_tpu_torch.ops import mlp as tmlp
+from neuralradiancecaching_tpu_torch.utils import profiling
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -172,9 +173,10 @@ def test_cpu_tensor_takes_plain_path_and_kernel_needs_cuda():
     cfg = MLPConfig()
     params = _torch(_params(cfg, 6))
     x = torch.zeros((8, 64))
-    before = fused_mlp.LAUNCHES
-    fused_mlp.apply_fused(params, x, port_cfg(cfg))
-    assert fused_mlp.LAUNCHES == before  # the plain version is no launch
+    with profiling.tracing("cpu") as rec, rec.frame(0):
+        fused_mlp.apply_fused(params, x, port_cfg(cfg))
+    # the plain version is no launch: no k1 span, no launch counted
+    assert [(r.name, r.counts) for r in rec.records()] == [("frame", {})]
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_mlp.apply_kernel(params, x, port_cfg(cfg))
 

@@ -45,11 +45,11 @@ from neuralradiancecaching_tpu.scene import camera as jcam
 from neuralradiancecaching_tpu.scene import scene as jscene
 from neuralradiancecaching_tpu_torch import config as tcfg_mod
 from neuralradiancecaching_tpu_torch.models import nrc as tnrc
-from neuralradiancecaching_tpu_torch.ops import fused_mlp
 from neuralradiancecaching_tpu_torch.render import frame as tframe
 from neuralradiancecaching_tpu_torch.render import pathtrace as tpt
 from neuralradiancecaching_tpu_torch.scene import camera as tcam
 from neuralradiancecaching_tpu_torch.scene import scene as tscene
+from neuralradiancecaching_tpu_torch.utils import profiling
 from tests.test_torch_oracle import jax_path_uniforms
 
 R = dataclasses.replace
@@ -207,11 +207,12 @@ def test_trace_scene_with_lights_matches_jax(setup, lights):
 
 def test_render_on_cpu_takes_plain_mlp_and_no_launch(setup):
     cfg, _, ts, _, tstate = setup
-    before = fused_mlp.LAUNCHES
     g = torch.Generator().manual_seed(0)
-    img = tframe.render_only_step(tstate, ts, g, port_cfg(cfg))
+    with profiling.tracing("cpu") as rec, rec.frame(0):
+        img = tframe.render_only_step(tstate, ts, g, port_cfg(cfg))
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
-    assert fused_mlp.LAUNCHES == before
+    assert not [r for r in rec.records()
+                if r.name == "k1" or "k1_f32_launches" in r.counts]
 
 
 WALK_SIDE = 48  # 2304 lanes: the packs and the kill act above their
@@ -318,8 +319,9 @@ def test_port_never_imports_jax():
     cap probe), the ``parallel`` package and its job runner, its mnist (on
     labels written here) and image-fit runs, the offline path tracer (on
     the corner table and on the raw grid), ``render_tiled``, ``utils``
-    (``debug``, ``log``, ``profiling``), the port's bench
-    (``bench_torch.run_bench``, every leg at a toy size) and the native
+    (``debug``, ``log``, ``profiling``), the port's quality tool
+    (``bench_torch.run_bench``, every quality leg at a toy size, with the
+    cap probes of ``benchmark/caps.py``) and the native
     asset library (``utils.setup_cache``, then ``assets.load_env_map`` on an
     RLE ``.hdr`` written here, decoded by ``io/native.py`` over
     ``csrc/nrcio.cpp``, built at first use) on the CPU load no
@@ -457,17 +459,16 @@ def test_port_never_imports_jax():
         import os
         import bench_torch
         os.environ.update(
-            BENCH_WIDTH="16", BENCH_HEIGHT="16", BENCH_BAND="4",
-            BENCH_FRAMES="1", BENCH_TRAIN_STEPS="1", BENCH_ONLINE_FRAMES="1",
-            BENCH_MOVING_FRAMES="1", BENCH_QUALITY_SIZE="8",
-            BENCH_QUALITY_TRAIN="1", BENCH_QUALITY_SPP="2",
-            BENCH_QUALITY_REF_SPP="2", BENCH_QUALITY_GT_SPP="2",
-            BENCH_QUALITY_GT_SIZE="8", BENCH_QUALITY_TRACK_STEPS="1",
-            BENCH_QUALITY_CADENCE_FRAMES="1", BENCH_TWIN_CACHE="0")
+            BENCH_QUALITY_SIZE="8", BENCH_QUALITY_TRAIN="1",
+            BENCH_QUALITY_SPP="2", BENCH_QUALITY_REF_SPP="2",
+            BENCH_QUALITY_GT_SPP="2", BENCH_QUALITY_GT_SIZE="8",
+            BENCH_QUALITY_TRACK_STEPS="1", BENCH_QUALITY_CADENCE_FRAMES="1",
+            BENCH_TWIN_CACHE="0")
+        bench_torch.WIDTH = bench_torch.HEIGHT = 16
         bench_torch.CACHE_POINTS, bench_torch.CACHE_CHUNK = 32, 16
-        bench_torch.CACHE_SAMPLES = bench_torch.TRAIN_TIMING_STEPS = 1
+        bench_torch.CACHE_SAMPLES = bench_torch.WARM_TRAIN_STEPS = 1
         res = bench_torch.run_bench("cpu")
-        assert res["fused_inference"] and res["value"] > 0, res
+        assert res["fused_inference"] and res["cache_probe_points"] > 0, res
         ours = "neuralradiancecaching_tpu_torch"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0].startswith("jax")

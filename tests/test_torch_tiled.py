@@ -51,12 +51,12 @@ from neuralradiancecaching_tpu.scene import scene as jscene
 from neuralradiancecaching_tpu_torch import config as tcfg_mod
 from neuralradiancecaching_tpu_torch.models import nrc as tnrc
 from neuralradiancecaching_tpu_torch.ops import compact as tcompact
-from neuralradiancecaching_tpu_torch.ops import fused_mlp
 from neuralradiancecaching_tpu_torch.render import frame as tframe
 from neuralradiancecaching_tpu_torch.render import pathtrace as tpt
 from neuralradiancecaching_tpu_torch.render import tiled as ttiled
 from neuralradiancecaching_tpu_torch.scene import camera as tcam
 from neuralradiancecaching_tpu_torch.scene import scene as tscene
+from neuralradiancecaching_tpu_torch.utils import profiling
 from tests.test_torch_train import jax_train_uniforms
 
 R = dataclasses.replace
@@ -462,8 +462,10 @@ def test_packed_branch_matches_unpacked_when_all_live(f32):
 
 def test_render_banded_on_cpu_takes_plain_mlp_and_no_launch(f32):
     cfg, _, ts, _, tstate = f32
-    before = (fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BF16)
-    img = ttiled.render_banded(tstate, ts, torch.Generator().manual_seed(0),
-                               port_cfg(cfg), BAND)
+    with profiling.tracing("cpu") as rec, rec.frame(0):
+        img = ttiled.render_banded(tstate, ts,
+                                   torch.Generator().manual_seed(0),
+                                   port_cfg(cfg), BAND)
     assert img.shape == (H, W, 3) and torch.isfinite(img).all()
-    assert (fused_mlp.LAUNCHES, fused_mlp.LAUNCHES_BF16) == before
+    assert not [r for r in rec.records() if r.name == "k1"
+                or {"k1_f32_launches", "k1_bf16_launches"} & set(r.counts)]
